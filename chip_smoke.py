@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``ntsm count``, through its CLI entry point at
-human scale, after building the count path's two CUDA kernels from
+Drives the port's two paths, ``ntsm count`` and ``ntsm eval -a``, through
+their CLI entry points at human scale, after building the CUDA kernels from
 ``ntsm_tpu_torch/csrc/`` and holding each against its plain PyTorch version
 on the card.  Imports neither jax nor ntsm_tpu.  Phases, each printing its
 result; any failure raises and ends the run with a non-zero exit:
@@ -19,11 +19,26 @@ result; any failure raises and ends the run with a non-zero exit:
      ``ntsm_tpu_torch.cli.main(["count", ...])``; counts.txt must be
      byte-identical to ``--engine golden`` and both kernels' launch
      counters must equal the number of batches
-  4. byte parity with the reference fixtures in tests/fixtures
-  5. a kernels JSON line, then the last line
+  4. byte parity with the count fixtures in tests/fixtures
+  5. the pair-statistics kernel against its plain version at 96,287 sites:
+     a 256-row block of a 1,024-sample cohort (diagonal and off-diagonal
+     tiles) and the ragged last block, -c -1 and 1; integers bit-exact,
+     joint and ss within 1e-12 relative; CUDA-event times
+  6. the eval path: ``ntsm_tpu_torch.cli.main(["eval", "-a", ...])`` on
+     320 count files of 96,287 sites (the default engine above 256 files
+     is the card's), against ``--engine exact`` on the same files: every
+     non-score column byte-identical, scores within 1e-9 max(1, |score|),
+     and the kernel's launch counter above 0; pairs/s end to end
+  7. the scorer at the N = 3202 cohort (1000 Genomes size), in memory,
+     through ``run_eval`` into a byte-counting sink; its first rows against
+     the exact engine
+  8. byte parity with the eval fixtures on the card
+  then a kernels JSON line, the card line, and the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Generated inputs go to build/chip_smoke/ (removed at the end).
+Generated inputs go to a temporary directory under build/ (removed at the
+end).  The synthetic cohort follows scripts/bench_eval.py:make_count_files:
+Poisson counts around coverage 25-35, sample 1 a duplicate of sample 0.
 """
 
 from __future__ import annotations
@@ -48,6 +63,8 @@ K = 19
 N_SITES = 96_287  # the human site set's size (bench.py)
 N_READS = 360_000  # >= 6 full B x L batches once densely packed
 READ_LEN = 150
+N_EVAL_FILES = 320  # above the 256-file cutoff of `eval --engine auto`
+N_COHORT = 3202  # the 1000 Genomes cohort
 LETTERS = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
@@ -273,13 +290,15 @@ def main_path(device, work: str, rng, card: str) -> dict:
           f"{n_batches} batches of {B} x {L}) in {time.monotonic() - t0:.1f} s", flush=True)
     check(n_batches >= 6, f"only {n_batches} batches")
 
-    hash_kernel.launches = 0
-    kernel_v3.launches = 0
+    from ntsm_tpu_torch.eval import pair_kernel
+
+    hash_kernel.launches = kernel_v3.launches = pair_kernel.launches = 0
     t0 = time.monotonic()
     got = cli_count(["-s", sites, fq])
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches}
+    check(pair_kernel.launches == 0, "ntsm count launched pair_stats")
     t0 = time.monotonic()
     want = cli_count(["--engine", "golden", "-s", sites, fq])
     gold_sec = time.monotonic() - t0
@@ -345,6 +364,262 @@ def fixtures(device) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------- phases 5-8
+
+
+def make_cohort(device, seed: int, n_samples: int, n_sites: int = N_SITES) -> np.ndarray:
+    """[n_samples, n_sites, 2] int32 max counts in the distribution of
+    scripts/bench_eval.py:make_count_files: per-site allele frequencies in
+    [0.05, 0.95], diploid genotypes, Poisson counts around a coverage of
+    25-35 with 2% cross-talk; sample 1 has sample 0's genotypes (a swap).
+    Drawn on `device` from a seeded torch generator, in blocks of rows."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=device, dtype=torch.float64)  # noqa: E731
+    freq = 0.05 + 0.9 * u(n_sites)
+    out = np.empty((n_samples, n_sites, 2), dtype=np.int32)
+    step = 256
+    for s0 in range(0, n_samples, step):
+        m = min(step, n_samples - s0)
+        geno = (u(m, n_sites) < freq).double() + (u(m, n_sites) < freq).double()
+        if s0 == 0 and m > 1:
+            geno[1] = geno[0]
+        lam = (25.0 + 10.0 * u(m, 1)) / 2.0
+        err = (0.02 * lam).expand(m, n_sites)
+        at = torch.poisson(lam * (2 - geno), generator=g) + torch.poisson(err, generator=g)
+        cg = torch.poisson(lam * geno, generator=g) + torch.poisson(err, generator=g)
+        out[s0 : s0 + m] = torch.stack([at, cg], dim=2).to(torch.int32).cpu().numpy()
+    return out
+
+
+def site_ids(n_sites: int = N_SITES) -> list:
+    return [f"rs{100000 + i}" for i in range(n_sites)]
+
+
+def write_count_file(job) -> str:
+    """One count file, written with the port's format_counts (a process
+    pool runs this: the formatting is Python, ~0.3 s a file)."""
+    from ntsm_tpu_torch.io.countfile import format_counts
+
+    path, mx = job
+    mx = mx.astype(np.int64)
+    n = mx.shape[0]
+    text = format_counts(site_ids(n), mx, mx * 13, np.full((n, 2), 13),
+                         int(mx.sum() * 37000), K)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def cohort_data(mx: np.ndarray, opts):
+    """In-memory CountData of a generated cohort, as if loaded from the
+    files write_count_file makes."""
+    from ntsm_tpu_torch.eval.model import CountData
+
+    n, L, _ = mx.shape
+    return CountData(
+        filenames=[f"s{s:04d}_counts.txt" for s in range(n)],
+        locus_ids=site_ids(L),
+        distinct=np.full((L, 2), 13, dtype=np.int64),
+        max_counts=mx,
+        sum_counts=mx * 13,
+        raw_total_kmers=mx.sum(axis=(1, 2)) * 37000,
+        ks=np.full(n, K, dtype=np.int64),
+        total_counts=mx.sum(axis=(1, 2)),
+    ).prepare(opts)
+
+
+def check_pair_stats(device, mx: np.ndarray, card: str) -> dict:
+    import torch
+
+    from ntsm_tpu_torch.eval import pair_kernel
+
+    n = 1024
+    ab = torch.from_numpy(np.ascontiguousarray(mx[:n])).to(device)
+    a, b = ab[:, :, 0].contiguous(), ab[:, :, 1].contiguous()
+    del ab
+    res, err = {}, 0.0
+    for mc in (-1, 1):
+        s = pair_kernel.s_single_plane(a, b, mc)
+        for r0, r1 in ((700, 956), (956, n)):
+            ik, fk = pair_kernel.pair_stats(a, b, s, r0, r1, mc, N_SITES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ip, fp = pair_kernel.pair_stats_plain(a, b, s, r0, r1, mc, N_SITES)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            check(torch.equal(ik, ip), f"pair_stats -c {mc} rows [{r0},{r1}): tallies differ from plain")
+            rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
+            check(rel <= 1e-12, f"pair_stats -c {mc} rows [{r0},{r1}): f64 relative error {rel:.3g}")
+            err = max(err, float((fk - fp).abs().max()))
+            ms = cuda_ms(lambda: pair_kernel.pair_stats(a, b, s, r0, r1, mc, N_SITES), iters=5)
+            P = ik.shape[1]
+            print(f"phase 5: pair_stats -c {mc} rows [{r0},{r1}) of {n} x {N_SITES} sites "
+                  f"({P} pairs): tallies bit-exact, joint/ss within {rel:.3g} relative of plain; "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+                  f"({P * N_SITES / ms / 1e6:.1f} Gpair-site/s) [{card}]", flush=True)
+            if mc == 1 and r0 == 700:
+                res = dict(ms=ms, plain_ms=plain_ms)
+        del s
+    return dict(max_abs_err=err, **res)
+
+
+def cli_eval(args) -> str:
+    from ntsm_tpu_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["eval", *args])
+    check(rc == 0, f"ntsm eval {' '.join(args[:4])} ... exited {rc}")
+    return out.getvalue()
+
+
+def compare_tables(got: str, want: str, what: str) -> int:
+    """Non-score columns byte-identical, scores within 1e-9 max(1, |s|);
+    returns how many score strings differ."""
+    g, w = got.splitlines(), want.splitlines()
+    check(len(g) == len(w), f"{what}: {len(g)} lines vs {len(w)}")
+    check(g[0] == w[0], f"{what}: header differs")
+    differ = 0
+    for lg, lw in zip(g[1:], w[1:]):
+        fg, fw = lg.split("\t"), lw.split("\t")
+        check(fg[:2] == fw[:2] and fg[3:] == fw[3:], f"{what}: row differs: {lg!r} vs {lw!r}")
+        if fg[2] != fw[2]:
+            differ += 1
+            x, y = float(fg[2]), float(fw[2])
+            check(abs(x - y) <= 1e-9 * max(1.0, abs(y)), f"{what}: score {fg[2]} vs {fw[2]}")
+    return differ
+
+
+def eval_main_path(mx: np.ndarray, work: str, card: str) -> int:
+    import multiprocessing
+
+    import torch
+
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.eval import pair_kernel
+
+    t0 = time.monotonic()
+    jobs = [(os.path.join(work, f"s{s:04d}_counts.txt"), mx[s]) for s in range(N_EVAL_FILES)]
+    with multiprocessing.get_context("spawn").Pool(os.cpu_count() or 1) as pool:
+        paths = pool.map(write_count_file, jobs, chunksize=4)
+    print(f"phase 6: wrote {len(paths)} count files of {N_SITES} sites in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    n_pairs = N_EVAL_FILES * (N_EVAL_FILES - 1) // 2
+    hash_kernel.launches = kernel_v3.launches = pair_kernel.launches = 0
+    t0 = time.monotonic()
+    got = cli_eval(["-a", *paths])
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = pair_kernel.launches
+    check(hash_kernel.launches == kernel_v3.launches == 0, "ntsm eval launched a count kernel")
+    check(launches > 0, "eval -a did not launch pair_stats (the default engine was not the card's)")
+    t0 = time.monotonic()
+    want = cli_eval(["-a", "--engine", "exact", *paths])
+    exact_sec = time.monotonic() - t0
+    differ = compare_tables(got, want, "eval -a vs --engine exact")
+    check(got.count("\n") == n_pairs + 1, "eval -a printed the wrong number of rows")
+    dup = got.splitlines()[1].split("\t")
+    check(dup[3] == "1", f"the duplicate pair (s0000, s0001) is not called the same: {dup[:4]}")
+    print(f"phase 6: ntsm eval -a on the card, {N_EVAL_FILES} files: {n_pairs} rows, non-score "
+          f"columns byte-identical to --engine exact ({exact_sec:.1f} s), {differ} score strings "
+          f"differ; pair_stats launches {launches}; {sec:.2f} s end to end (CLI incl. load), "
+          f"{n_pairs / sec:.0f} pairs/s [{card}]", flush=True)
+    return launches
+
+
+class ByteSink:
+    """A text sink that counts bytes and lines and keeps the first head
+    bytes; the native row formatter writes to its .buffer."""
+
+    def __init__(self, head: int = 1 << 20):
+        self.n_bytes = self.n_lines = 0
+        self.head = bytearray()
+        self.cap = head
+        self.buffer = self
+
+    def write(self, x) -> int:
+        data = x.encode() if isinstance(x, str) else bytes(x)
+        self.n_bytes += len(data)
+        self.n_lines += data.count(b"\n")
+        if len(self.head) < self.cap:
+            self.head += data[: self.cap - len(self.head)]
+        return len(x)
+
+    def flush(self) -> None:
+        pass
+
+
+def eval_cohort(device, mx: np.ndarray, card: str) -> None:
+    import torch
+
+    from ntsm_tpu_torch.eval import exact
+    from ntsm_tpu_torch.eval.driver import run_eval
+    from ntsm_tpu_torch.options import Options
+
+    opts = Options(all=True, engine="cuda")
+    t0 = time.monotonic()
+    data = cohort_data(mx, opts)
+    prep = time.monotonic() - t0
+    n = data.n_samples
+    n_pairs = n * (n - 1) // 2
+    sink = ByteSink()
+    t0 = time.monotonic()
+    with contextlib.redirect_stderr(io.StringIO()):
+        tm = run_eval(data, opts, sink, device=device)
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    check(sink.n_lines == n_pairs + 1, f"N={n}: {sink.n_lines} lines for {n_pairs} pairs")
+    # the first rows are the pairs (0, j): score them with the exact engine
+    k = min(bytes(sink.head).count(b"\n"), n)  # header + pairs (0, 1..k-1)
+    head = bytes(sink.head).decode().splitlines()[:k]
+    sub = cohort_data(np.ascontiguousarray(mx[:k]), opts)
+    ii = np.zeros(k - 1, dtype=np.int64)
+    jj = np.arange(1, k)
+    score, tallies = exact.native_pair_stats(sub, opts, ii, jj)
+    want = io.StringIO()
+    want.write(exact.HEADER + "\n")
+    exact._emit_pairs(sub, opts, want, ii, jj, score, tallies)
+    differ = compare_tables("\n".join(head) + "\n", want.getvalue(), f"N={n} first rows")
+    print(f"phase 7: the scorer at N={n} x {N_SITES} sites in memory (prepare {prep:.1f} s): "
+          f"{n_pairs} pairs, {sink.n_bytes / 1e9:.2f} GB of rows in {sec:.2f} s = "
+          f"{n_pairs / sec:.0f} pairs/s; upload + s_single {tm['upload']:.2f} s, "
+          f"kernel + fetch {tm['score']:.2f} s in {tm['blocks']} blocks, finalize "
+          f"{tm['finalize']:.2f} s, emit {tm['emit']:.2f} s; first {k - 1} rows match the "
+          f"exact engine ({differ} score strings differ) [{card}]", flush=True)
+
+
+def eval_fixtures() -> None:
+    from ntsm_tpu_torch.eval import pair_kernel
+
+    files = [os.path.join(FIX, f"{s}_counts.txt") for s in
+             ("sampleA", "sampleA2", "sampleB", "sampleC", "sampleLow")]
+    cases = {"eval_default.tsv": [], "eval_all.tsv": ["-a"],
+             "eval_all_c2.tsv": ["-a", "-c", "2"], "eval_all_noskew.tsv": ["-a", "-w", "0"],
+             "eval_all_g.tsv": ["-a", "-g", "80000"]}
+    cwd = os.getcwd()
+    os.chdir(FIX)  # the fixtures print the file names as given
+    try:
+        names = [os.path.basename(f) for f in files]
+        for fixture, flags in cases.items():
+            before = pair_kernel.launches
+            got = cli_eval(["--engine", "cuda", *flags, *names])
+            with open(fixture) as fh:
+                check(got == fh.read(), f"{fixture}: eval output differs on the card")
+            check(pair_kernel.launches > before, f"{fixture}: pair_stats not launched")
+        with open("eval_single.tsv") as fh:
+            check(cli_eval(["--engine", "cuda", names[0]]) == fh.read(),
+                  "eval_single.tsv differs on the card")
+    finally:
+        os.chdir(cwd)
+    print(f"phase 8: {len(cases)} eval fixtures and eval_single.tsv byte-identical with "
+          "--engine cuda on the card", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -380,9 +655,18 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
         launches = main_path(device, work, rng, card)
+        fixtures(device)
+
+        t0 = time.monotonic()
+        cohort = make_cohort(device, 20261017, N_COHORT)
+        print(f"phase 5: generated a {N_COHORT}-sample cohort of {N_SITES} sites in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        pair = check_pair_stats(device, cohort, card)
+        launches["pair_stats"] = eval_main_path(cohort, work, card)
+        eval_cohort(device, cohort, card)
+        eval_fixtures()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    fixtures(device)
 
     kernels = [
         dict(name="window_hash", route="cuda",
@@ -393,6 +677,10 @@ def main() -> int:
              source="ntsm_tpu_torch/csrc/probe_count.cu",
              replaces="ntsm_tpu/count/kernel_v3.py:270",
              launches=launches["probe_count"], **probe),
+        dict(name="pair_stats", route="cuda",
+             source="ntsm_tpu_torch/csrc/pair_stats.cu",
+             replaces="ntsm_tpu/eval/pallas_joint.py:54",
+             launches=launches["pair_stats"], **pair),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

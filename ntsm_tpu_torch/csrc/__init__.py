@@ -1,13 +1,14 @@
-"""Build and bind the hand-written CUDA kernels of the count path.
+"""Build and bind the port's hand-written CUDA kernels.
 
 The ``*.cu`` sources in this directory have a plain C interface.  At first
 use :func:`load` compiles all of them with nvcc for ``sm_90a`` into
 ``build/ntsm_tpu_torch/libntsm_kernels.so`` (a few seconds; nothing here
 includes PyTorch's headers) and binds the entry points with ctypes.  Each
 entry point launches on the stream it is given and returns
-``cudaGetLastError()``; the wrappers in ``ntsm_tpu_torch.count`` raise on a
-non-zero code.  Nothing is compiled when this module is imported, so the
-CPU tests import it freely.
+``cudaGetLastError()``; the wrappers (``ntsm_tpu_torch.count.hash_kernel``,
+``count.kernel_v3``, ``eval.pair_kernel``) raise on a non-zero code.
+Nothing is compiled when this module is imported, so the CPU tests import
+it freely.
 """
 
 from __future__ import annotations
@@ -84,6 +85,8 @@ def load():
         lib.ntsm_window_hash.argtypes = [P, L, P, L, I, I, I, P, P, P]
         lib.ntsm_probe_count.restype = I
         lib.ntsm_probe_count.argtypes = [P, P, L, P, P, P, L, I, P, P, P]
+        lib.ntsm_pair_stats.restype = I
+        lib.ntsm_pair_stats.argtypes = [P, P, P, L, I, L, I, I, L, P, P, L, P]
         lib.ntsm_cuda_error_string.restype = ctypes.c_char_p
         lib.ntsm_cuda_error_string.argtypes = [I]
         _lib = lib

@@ -100,6 +100,8 @@ def test_main_dispatch(capsys):
     assert main([]) == 1
     assert main(["--help"]) == 0
     assert main(["eval", "a", "b"]) == 1
+    assert "input file a does not exist" in capsys.readouterr().err
+    assert main(["vcf", "a", "b"]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert main(["bogus"]) == 1
     assert main(["count", "--version"]) == 0

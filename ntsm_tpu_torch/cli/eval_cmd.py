@@ -2,8 +2,8 @@
 counterpart of ntsm_tpu/cli/eval_cmd.py.
 
 Dispatch: 1 file -> QC mode; --only_merge -> merge only; otherwise
-all-vs-all; -e merges afterwards (ntSeqMatchEval.cpp:304-341).  The
-PCA-filtered (-p) and debug (-b) modes are not ported yet (exit 1).
+all-vs-all, or with -p the PCA-filtered comparison (-b its debug-recall
+harness); -e merges afterwards (ntSeqMatchEval.cpp:304-341).
 """
 
 from __future__ import annotations
@@ -46,21 +46,19 @@ If only a single file is provided general QC information returned.
       --version              Print version information.
       --engine = STR         extension: auto (default), exact or cuda. exact is
                              the float64 host engine; cuda the device engine
-                             (the hand-written pair-statistics kernel on
-                             --device cuda, its plain PyTorch version on
-                             --device cpu); auto takes exact up to 256 files
-                             and cuda above.
+                             (the hand-written pair kernels on --device cuda,
+                             their plain PyTorch versions on --device cpu);
+                             auto is cuda wherever pairs are scored (-a, the
+                             default all-vs-all, -p) and exact for the modes
+                             that score none (one file, -o, -b).
       --device = STR         extension: cuda (default) or cpu, for the cuda
                              engine. cuda requires a CUDA device; the engine
                              never moves to the CPU on its own.
-      --distributed, -p, -b  not yet ported (exit 1).
+      --distributed          not yet ported (exit 1).
 """
 
 ENGINES = ("auto", "exact", "cuda")
 DEVICES = ("cuda", "cpu")
-# `auto` takes the exact host engine up to this many files when the native
-# pair scorer is built (32 without it: the Python loop is far slower)
-AUTO_EXACT_MAX = 256
 
 
 def run(argv) -> int:
@@ -173,20 +171,15 @@ def run(argv) -> int:
         print("Try '--help' for more information.", file=sys.stderr)
         return 1
     # the port's own checks come after the reference's, whose texts they keep
-    for flag, val in (("-p", opts.pca), ("-b", opts.debug)):
-        if val:
-            print(f"ntsm eval: {flag} is not yet ported to ntsm_tpu_torch",
-                  file=sys.stderr)
-            return 1
     if opts.engine not in ENGINES or device not in DEVICES:
         print(f"Error: --engine must be one of {', '.join(ENGINES)} and "
               f"--device one of {', '.join(DEVICES)}", file=sys.stderr)
         return 1
+    # single-sample QC, --only_merge and the -b harness (which scores its
+    # true pairs on the host, as the JAX package does) need no device
+    scores_pairs = len(files) > 1 and not opts.only_merge and not (opts.pca and opts.debug)
     if opts.engine == "auto":
-        from ntsm_tpu_torch import native
-
-        cutoff = AUTO_EXACT_MAX if native.load() is not None else 32
-        opts = opts.replace(engine="exact" if len(files) <= cutoff else "cuda")
+        opts = opts.replace(engine="cuda" if scores_pairs else "exact")
     elif opts.engine == "exact" and len(files) > 1000 and not opts.only_merge:
         n_pairs = len(files) * (len(files) - 1) // 2
         print(
@@ -196,7 +189,7 @@ def run(argv) -> int:
             "within ~1e-9.",
             file=sys.stderr,
         )
-    if opts.engine == "cuda" and device == "cuda":
+    if opts.engine == "cuda" and device == "cuda" and scores_pairs:
         import torch
 
         if not torch.cuda.is_available():

@@ -10,15 +10,9 @@
 //                     sumLogPSingle2 over the pair's valid sites
 //
 // with P the block's pairs in np.triu_indices order (row i, then j > i).
-// A site is valid for a pair when both samples have an allele count above
-// min_cov (calcHomHetMiss, src/CompareCounts.hpp:742-768); the per-site f64
-// arithmetic is that of the exact engine (ntsm_tpu/native/exact_pairs.cpp:
-// sums_pair, eval/exact.py:joint_sum), written with round-to-nearest
-// intrinsics so that nvcc contracts nothing into an FMA, and the sites are
-// summed in ascending order as that loop sums them.  So joint and ss are
-// the exact engine's bit for bit when its library is built without FMA
-// (ntsm_tpu_torch/native builds it with -ffp-contract=off),
-// and the printed scores agree byte for byte.
+// The per-site step is pair_site.cuh's, called for the sites in ascending
+// order, so joint and ss are the exact engine's bit for bit and the printed
+// scores agree byte for byte.
 //
 // Replaces the TPU kernel ntsm_tpu/eval/pallas_joint.py:54
 // _joint_frac_kernel (K3, the fractional joint term jfrac, opt-in on the
@@ -50,6 +44,8 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_site.cuh"
+
 namespace {
 
 constexpr int TI = 16;  // rows (i) per tile = blockDim.y
@@ -79,8 +75,7 @@ pair_stats_kernel(const int32_t* __restrict__ A, const int32_t* __restrict__ B,
     if (j_end - 1 <= i0) return;
 
     const int i = i0 + ty, j = j0 + tx;
-    int n = 0, ibs0 = 0, shet = 0, h1 = 0, h2 = 0;
-    double joint = 0.0, ss = 0.0;
+    PairAcc acc;
 
     for (long s0 = 0; s0 < n_sites; s0 += SC) {
         const int width = static_cast<int>(min(static_cast<long>(SC), n_sites - s0));
@@ -102,28 +97,8 @@ pair_stats_kernel(const int32_t* __restrict__ A, const int32_t* __restrict__ B,
         __syncthreads();
 
         for (int c = 0; c < width; ++c) {
-            const int ai = a_i[ty][c], bi = b_i[ty][c];
-            const int aj = a_j[c][tx], bj = b_j[c][tx];
-            // genotype code: bit 0 = AT above min_cov, bit 1 = CG above;
-            // 3 = het, 1 = hom AT, 2 = hom CG, 0 = missing
-            const int ci = (ai > mc) | ((bi > mc) << 1);
-            const int cj = (aj > mc) | ((bj > mc) << 1);
-            if (ci == 0 || cj == 0) continue;
-            ++n;
-            ibs0 += (ci ^ cj) == 3;  // opposite homs
-            shet += (ci & cj) == 3;
-            h1 += ci == 3;
-            h2 += cj == 3;
-            const long aa = static_cast<long>(ai) + aj;
-            const long bb = static_cast<long>(bi) + bj;
-            const double aad = static_cast<double>(aa), bbd = static_cast<double>(bb);
-            // valid implies den > 0; the exact engine's guard kept as is
-            const double den = static_cast<double>(aa + bb);
-            const double dsafe = den > 0.0 ? den : 1.0;
-            const double fa = aa > mc ? __ddiv_rn(aad, dsafe) : 0.0;
-            const double fb = bb > mc ? __ddiv_rn(bbd, dsafe) : 0.0;
-            joint = __dadd_rn(joint, __dadd_rn(__dmul_rn(aad, fa), __dmul_rn(bbd, fb)));
-            ss = __dadd_rn(ss, __dadd_rn(s_i[ty][c], s_j[c][tx]));
+            ntsm_pair_site(acc, a_i[ty][c], b_i[ty][c], s_i[ty][c], a_j[c][tx], b_j[c][tx],
+                           s_j[c][tx], mc);
         }
         __syncthreads();
     }
@@ -134,13 +109,13 @@ pair_stats_kernel(const int32_t* __restrict__ A, const int32_t* __restrict__ B,
     const long p = (li - lr0) * last - (li * (li - 1) / 2 - lr0 * (lr0 - 1) / 2)
                    + (j - i - 1);
     if (p >= n_pairs) return;  // cannot happen for a consistent n_pairs
-    ints[p] = n;
-    ints[n_pairs + p] = ibs0;
-    ints[2 * n_pairs + p] = shet;
-    ints[3 * n_pairs + p] = h1;
-    ints[4 * n_pairs + p] = h2;
-    sums[p] = joint;
-    sums[n_pairs + p] = ss;
+    ints[p] = acc.n;
+    ints[n_pairs + p] = acc.ibs0;
+    ints[2 * n_pairs + p] = acc.shet;
+    ints[3 * n_pairs + p] = acc.h1;
+    ints[4 * n_pairs + p] = acc.h2;
+    sums[p] = acc.joint;
+    sums[n_pairs + p] = acc.ss;
 }
 
 }  // namespace

@@ -1,13 +1,13 @@
 """Row emission for the eval engines (counterpart of
 ntsm_tpu/eval/emit.py): the native C formatter binding, the shared
-emission path, and per-sample string caches.  The -p path's dist column
-is not ported: every row prints "-1" there."""
+-a/-p emission path, and per-sample string caches."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ntsm_tpu_torch.eval.exact import PairResult, Relate, results_row
+from ntsm_tpu_torch.utils.formats import cpp_to_string
 
 # the tallies in _pair_columns' argument order, after the score
 PAIR_COL_KEYS = (
@@ -23,10 +23,11 @@ def _load_row_formatter():
     return native.load()
 
 
-def _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w):
+def _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w, dist=None):
     """Emit rows from prebuilt (f3 [P,3] f64, i9 [P,9] i64) column arrays
     (the _pair_columns contract) — both engines put each block of pairs
-    into exactly these.
+    into exactly these.  dist is the -p path's per-pair f64 column, or
+    None for the "-1" of all-vs-all.
 
     Applies the -a / score-threshold filtering and the quirky `same`
     column semantics (CompareCounts.hpp:853-861), then formats through the
@@ -43,6 +44,8 @@ def _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w):
         keep = sc < opts.score_thresh
         iu, ju, f3, i9 = iu[keep], ju[keep], f3[keep], i9[keep]
         sc = f3[:, 0]
+        if dist is not None:
+            dist = dist[keep]
         # without -a only passing pairs print, hard-coded "1"
         same = np.full(iu.shape[0], ord("1"), dtype=np.uint8)
     P = int(iu.shape[0])
@@ -52,7 +55,8 @@ def _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w):
     if lib is not None:
         ii = np.ascontiguousarray(iu.astype(np.int32))
         jj = np.ascontiguousarray(ju.astype(np.int32))
-        _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, samp_w)
+        dd = None if dist is None else np.ascontiguousarray(dist, dtype=np.float64)
+        _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, dd, samp_w)
         return
 
     for p in range(P):
@@ -73,15 +77,14 @@ def _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w):
             i=int(iu[p]), j=int(ju[p]), score=float(sc[p]),
             n=int(i9[p, 8]), relate=r,
         )
-        out.write(results_row(data, res, "-1", opts))
+        d = "-1" if dist is None else cpp_to_string(float(dist[p]))
+        out.write(results_row(data, res, d, opts))
         out.write("\n")
 
 
 def _sample_strings(data):
     """[N, 6] fixed-width per-sample byte columns (formatted once):
     fname, cov, errorRate, miss, homs, hets."""
-    from ntsm_tpu_torch.utils.formats import cpp_to_string
-
     N = data.n_samples
     rows = [
         [
@@ -128,9 +131,9 @@ def _pair_columns(score, ibs0, shet, shom, h1, h2, o1, o2, n):
     return f3, i9
 
 
-def _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, samp_w=None):
-    """Chunked native emission of prepared per-pair arrays; the dist
-    column prints "-1" (a NULL dist array)."""
+def _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, dist, samp_w=None):
+    """Chunked native emission of prepared per-pair arrays; dist is an f64
+    array for -p or None for the "-1" column of all-vs-all."""
     import ctypes
 
     samp, w = samp_w if samp_w is not None else _sample_strings(data)
@@ -152,10 +155,11 @@ def _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, samp_w=None):
         blk = c1 - c0
         f3b = np.ascontiguousarray(f3[c0:c1])
         i9b = np.ascontiguousarray(i9[c0:c1])
+        db = None if dist is None else dist[c0:c1]
         while True:
             nb = lib.ntsm_format_eval_rows(
                 blk, vp(ii[c0:c1]), vp(jj[c0:c1]), vp(f3b), vp(i9b),
-                vp(same[c0:c1]), None,
+                vp(same[c0:c1]), None if db is None else vp(db),
                 vp(samp), w, N, vp(buf), buf.shape[0],
             )
             if nb >= 0:

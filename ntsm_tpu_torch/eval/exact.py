@@ -10,8 +10,8 @@ Replicates CompareCounts' arithmetic byte-for-byte:
 * result row layout (resultsStr, :844-921; header :726-730)
 
 The device engine (eval/rect.py) computes the same quantities with the
-same per-site arithmetic in a CUDA kernel; this engine is the parity oracle
-(``--engine exact``) and the default for small N.
+same per-site arithmetic in CUDA kernels; this engine is the parity oracle
+(``--engine exact``).
 """
 
 from __future__ import annotations
@@ -223,12 +223,14 @@ def native_pair_stats(data: CountData, opts: Options, ii, jj):
     return score, tallies
 
 
-def _emit_pairs(data, opts, out, ii, jj, score, tallies, samp_w=None) -> None:
+def _emit_pairs(data, opts, out, ii, jj, score, tallies, dist=None,
+                samp_w=None) -> None:
     """Emit result rows for a scored pair list through the shared emission
     path (eval/emit.py:_emit_prepared: filtering, the `same` column, the
-    native C formatter with the Python fallback).  Pass samp_w (the
-    _sample_strings cache) when calling per block: None makes the native
-    emitter rebuild it on every call."""
+    native C formatter with the Python fallback); dist is the -p path's
+    f64 column or None for "-1".  Pass samp_w (the _sample_strings cache)
+    when calling per block: None makes the native emitter rebuild it on
+    every call."""
     from ntsm_tpu_torch.eval.emit import (
         PAIR_COL_KEYS,
         _emit_prepared,
@@ -238,7 +240,7 @@ def _emit_pairs(data, opts, out, ii, jj, score, tallies, samp_w=None) -> None:
 
     f3, i9 = _pair_columns(score, *(tallies[k] for k in PAIR_COL_KEYS))
     _emit_prepared(data, opts, out, np.asarray(ii), np.asarray(jj), f3, i9,
-                   _load_row_formatter(), samp_w)
+                   _load_row_formatter(), samp_w, dist=dist)
 
 
 def compute_score_all(data: CountData, opts: Options, out) -> None:
@@ -273,13 +275,17 @@ def compute_score_all(data: CountData, opts: Options, out) -> None:
                 out.write("\n")
 
 
-def compute_score_single(data: CountData, opts: Options, out) -> None:
-    """Single-file QC output (computeScoreSingle, CompareCounts.hpp:541-585).
+def compute_score_single(data: CountData, opts: Options, out, cloud=None) -> None:
+    """Single-file QC output (computeScoreSingle, CompareCounts.hpp:541-585);
+    with -p, `cloud` [N, dim] adds the PC1..PCdim columns.
 
     NB the reference writes QC rows with no trailing newline (the rows are
     joined bare); replicated faithfully.
     """
-    out.write("sample\tcov\terrorRate\tmiss\thom\thet\n")
+    header = "sample\tcov\terrorRate\tmiss\thom\thet"
+    if cloud is not None:
+        header += "".join(f"\tPC{c}" for c in range(1, cloud.shape[1] + 1))
+    out.write(header + "\n")
     f = cpp_to_string
     for i in range(data.n_samples):
         cols = [
@@ -290,4 +296,6 @@ def compute_score_single(data: CountData, opts: Options, out) -> None:
             str(int(data.homs[i])),
             str(int(data.hets[i])),
         ]
+        if cloud is not None:
+            cols.extend(f(v) for v in cloud[i])
         out.write("\t".join(cols))

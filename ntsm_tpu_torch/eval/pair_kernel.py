@@ -1,5 +1,6 @@
-"""The pair statistics of ``eval`` all-vs-all (counterpart of
-ntsm_tpu/eval/pallas_joint.py and the pair math of ntsm_tpu/eval/kernels.py).
+"""The pair statistics of ``eval`` all-vs-all and ``eval -p`` (counterpart
+of ntsm_tpu/eval/pallas_joint.py and the pair math of
+ntsm_tpu/eval/kernels.py).
 
 For every pair (i, j), i < j, of a block of rows [r0, r1) against the whole
 cohort, :func:`pair_stats` gives
@@ -20,6 +21,13 @@ tallies); ``joint`` here equals the TPU engine's ``jint - jfrac``.
 :func:`pair_stats_plain`, for CUDA tensors it launches
 ``csrc/pair_stats.cu`` or raises; it never falls back.  ``launches`` counts
 the kernel launches.
+
+:func:`pair_block_stats` gives the same ``(ints, sums)`` for a list of
+candidate pairs ``(ii[p], jj[p])`` of ``eval -p``, in the list's order (the
+TPU's K5, ``eval/kernels.py:_pair_block_stats_v2``): for CPU tensors it
+runs :func:`pair_block_stats_plain`, for CUDA tensors it launches
+``csrc/pair_block_stats.cu`` or raises.  ``launches_block`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from ntsm_tpu_torch import csrc
 
 launches = 0
+launches_block = 0
 
 N_INTS = 5  # n, ibs0, shared_hets, hets1, hets2
 # elements of a [T, N, C] broadcast chunk in the plain version: bounds its
@@ -58,6 +67,26 @@ def s_single_plane(a: torch.Tensor, b: torch.Tensor, mc: int) -> torch.Tensor:
     return af * fa + bf * fb
 
 
+def _site_sums(ai, bi, si, aj, bj, sj, mc: int):
+    """The per-site step of csrc/pair_site.cuh on int64 counts and f64
+    s_single values that broadcast against each other, summed over the
+    last axis: (ints [5, ...] int64, sums [2, ...] float64)."""
+    ci = (ai > mc).long() | ((bi > mc).long() << 1)  # 3 het, 1/2 hom, 0 miss
+    cj = (aj > mc).long() | ((bj > mc).long() << 1)
+    v = (ci != 0) & (cj != 0)
+    ints = torch.stack([v.sum(-1), (v & ((ci ^ cj) == 3)).sum(-1), ((ci & cj) == 3).sum(-1),
+                        (v & (ci == 3)).sum(-1), (v & (cj == 3)).sum(-1)])
+    aa, bb = ai + aj, bi + bj
+    aad, bbd = aa.double(), bb.double()
+    den = aad + bbd
+    dsafe = torch.where(den > 0, den, torch.ones_like(den))
+    zero = torch.zeros((), dtype=torch.float64, device=ai.device)
+    fa = torch.where(aa > mc, aad / dsafe, zero)
+    fb = torch.where(bb > mc, bbd / dsafe, zero)
+    joint = torch.where(v, aad * fa + bbd * fb, zero).sum(-1)
+    return ints, torch.stack([joint, torch.where(v, si + sj, zero).sum(-1)])
+
+
 def pair_stats_plain(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
     """The plain PyTorch version, in int64 / f64 over [T, N, C] chunks:
     (ints [5, P] int32, sums [2, P] float64).
@@ -70,7 +99,6 @@ def pair_stats_plain(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
     a = a[:, :n_sites].long()
     b = b[:, :n_sites].long()
     s = s[:, :n_sites]
-    code = (a > mc).long() | ((b > mc).long() << 1)  # 3 het, 1/2 hom, 0 miss
     budget = PLAIN_CHUNK.get(dev.type, PLAIN_CHUNK["cpu"])
     T = max(1, min(r1 - r0, budget // max(1, N)))
     ints_out, sums_out = [], []
@@ -82,23 +110,10 @@ def pair_stats_plain(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
         acc_f = torch.zeros((2, t1 - t0, N), dtype=torch.float64, device=dev)
         for c0 in range(0, n_sites, C):
             sl = slice(c0, min(c0 + C, n_sites))
-            ci, cj = code[t0:t1, None, sl], code[None, :, sl]
-            v = (ci != 0) & (cj != 0)
-            acc_i[0] += v.sum(-1)
-            acc_i[1] += (v & ((ci ^ cj) == 3)).sum(-1)
-            acc_i[2] += ((ci & cj) == 3).sum(-1)
-            acc_i[3] += (v & (ci == 3)).sum(-1)
-            acc_i[4] += (v & (cj == 3)).sum(-1)
-            aa = a[t0:t1, None, sl] + a[None, :, sl]
-            bb = b[t0:t1, None, sl] + b[None, :, sl]
-            aad, bbd = aa.double(), bb.double()
-            den = aad + bbd
-            dsafe = torch.where(den > 0, den, torch.ones_like(den))
-            zero = torch.zeros((), dtype=torch.float64, device=dev)
-            fa = torch.where(aa > mc, aad / dsafe, zero)
-            fb = torch.where(bb > mc, bbd / dsafe, zero)
-            acc_f[0] += torch.where(v, aad * fa + bbd * fb, zero).sum(-1)
-            acc_f[1] += torch.where(v, s[t0:t1, None, sl] + s[None, :, sl], zero).sum(-1)
+            ints, sums = _site_sums(a[t0:t1, None, sl], b[t0:t1, None, sl], s[t0:t1, None, sl],
+                                    a[None, :, sl], b[None, :, sl], s[None, :, sl], mc)
+            acc_i += ints
+            acc_f += sums
         upper = cols[None, :] > torch.arange(t0, t1, device=dev)[:, None]
         ints_out.append(acc_i[:, upper].to(torch.int32))
         sums_out.append(acc_f[:, upper])
@@ -152,4 +167,78 @@ def pair_stats(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
     )
     csrc.check(lib, rc, "pair_stats")
     launches += 1
+    return ints, sums
+
+
+def pair_block_stats_plain(a, b, s, ii, jj, mc: int, n_sites: int):
+    """The plain PyTorch version of :func:`pair_block_stats`, in int64 /
+    f64 over chunks of pairs: (ints [5, P] int32, sums [2, P] float64).
+    Only the first ``n_sites`` columns count, as in :func:`pair_stats_plain`."""
+    dev = a.device
+    P = ii.shape[0]
+    a = a[:, :n_sites]
+    b = b[:, :n_sites]
+    s = s[:, :n_sites]
+    ints = torch.zeros((N_INTS, P), dtype=torch.int64, device=dev)
+    sums = torch.zeros((2, P), dtype=torch.float64, device=dev)
+    budget = PLAIN_CHUNK.get(dev.type, PLAIN_CHUNK["cpu"])
+    T = max(1, budget // max(1, n_sites))
+    for p0 in range(0, P, T):
+        sl = slice(p0, min(p0 + T, P))
+        i, j = ii[sl].long(), jj[sl].long()
+        ints[:, sl], sums[:, sl] = _site_sums(a[i].long(), b[i].long(), s[i],
+                                              a[j].long(), b[j].long(), s[j], mc)
+    return ints.to(torch.int32), sums
+
+
+def _check_pairs(a, ii, jj) -> None:
+    if ii.dim() != 1 or ii.shape != jj.shape:
+        raise ValueError(f"ii, jj must be [P] of one length, got "
+                         f"{tuple(ii.shape)}, {tuple(jj.shape)}")
+    if ii.dtype != torch.int32 or jj.dtype != torch.int32:
+        raise TypeError(f"ii, jj must be int32, got {ii.dtype}, {jj.dtype}")
+    if not (ii.is_contiguous() and jj.is_contiguous()):
+        raise ValueError("ii, jj must be contiguous")
+    if not (ii.device == jj.device == a.device):
+        raise ValueError("ii, jj must be on the planes' device")
+    if ii.numel() == 0:
+        return
+    N = a.shape[0]
+    lo = int(torch.minimum(ii.min(), jj.min()))
+    hi = int(torch.maximum(ii.max(), jj.max()))
+    if lo < 0 or hi >= N:
+        raise ValueError(f"pair indices outside [0, {N}): [{lo}, {hi}]")
+    if bool((ii == jj).any()):
+        raise ValueError("a pair (i, i) is no candidate: ii == jj")
+
+
+def pair_block_stats(a, b, s, ii, jj, mc: int, n_sites: int):
+    """(ints [5, P] int32, sums [2, P] float64) for the candidate pairs
+    (ii[p], jj[p]), in that order: a, b are [N, L] int32 allele count
+    planes, s is :func:`s_single_plane` of them, ii and jj are [P] int32
+    sample indices in [0, N) with ii != jj, and only sites [0, n_sites)
+    count."""
+    global launches_block
+    N = a.shape[0]
+    _check(a, b, s, 0, N, n_sites)
+    _check_pairs(a, ii, jj)
+    if a.device.type == "cpu":
+        return pair_block_stats_plain(a, b, s, ii, jj, mc, n_sites)
+    if a.device.type != "cuda":
+        raise ValueError(f"pair_block_stats: unsupported device {a.device}")
+    lib = csrc.load()
+    P = ii.shape[0]
+    ints = torch.empty((N_INTS, P), dtype=torch.int32, device=a.device)
+    sums = torch.empty((2, P), dtype=torch.float64, device=a.device)
+    if P == 0:
+        return ints, sums
+    rc = lib.ntsm_pair_block_stats(
+        ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+        ctypes.c_void_p(s.data_ptr()), a.shape[1], n_sites,
+        ctypes.c_void_p(ii.data_ptr()), ctypes.c_void_p(jj.data_ptr()), P, int(mc),
+        ctypes.c_void_p(ints.data_ptr()), ctypes.c_void_p(sums.data_ptr()),
+        csrc.stream_ptr(a.device),
+    )
+    csrc.check(lib, rc, "pair_block_stats")
+    launches_block += 1
     return ints, sums

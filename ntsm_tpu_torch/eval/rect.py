@@ -1,14 +1,17 @@
-"""The device engine of ``eval`` all-vs-all (counterpart of
-ntsm_tpu/eval/rect.py and eval/tpu.py:compute_score_all_tpu).
+"""The device engine of ``eval`` all-vs-all and ``eval -p`` (counterpart of
+ntsm_tpu/eval/rect.py and eval/tpu.py:compute_score_all_tpu,
+compute_score_pca_tpu).
 
 The [N, L] int32 allele count planes go to the device once, with the f64
-s_single plane computed there; the i<j triangle is then scored in row
-blocks by the pair-statistics kernel (eval/pair_kernel.py), each block's
-per-pair (ints, joint, ss) is fetched, finalized on the host in f64 with the
-exact engine's transform and emitted.  The TPU engine's wire (u8/u16
-planes, the 17 B/pair blob, BATCH=8 fetch stacking, diagonal gathers) and
-its load-overlapped streaming are not ported: the card has f64 and a wide
-host link, so the plain form comes first.
+s_single plane computed there.  All-vs-all scores the i<j triangle in row
+blocks with the pair-statistics kernel; -p scores the candidate list in
+slices with the candidate-pair kernel (both in eval/pair_kernel.py).  Each
+block's per-pair (ints, joint, ss) is fetched, finalized on the host in f64
+with the exact engine's transform and emitted.  The TPU engine's wire
+(u8/u16 planes, the 17 B/pair blob, fetch stacking and grouping, diagonal
+gathers) and its load-overlapped streaming (eval/pca_stream.py) are not
+ported: the card has f64 and a wide host link, so the plain form comes
+first.
 """
 
 from __future__ import annotations
@@ -22,10 +25,11 @@ from ntsm_tpu_torch.eval import pair_kernel
 from ntsm_tpu_torch.eval.emit import _emit_prepared, _load_row_formatter, _pair_columns, _sample_strings
 from ntsm_tpu_torch.eval.exact import DBL_MAX, HEADER
 from ntsm_tpu_torch.eval.model import CountData
+from ntsm_tpu_torch.eval.pca import pair_dist_sq, pca_candidate_arrays, search_radii
 from ntsm_tpu_torch.options import Options
 
 SITE_ALIGN = 32  # plane rows padded to 128 bytes; pad sites never count
-BLOCK_PAIRS = 1 << 21  # pairs per row block: bounds the fetched block
+BLOCK_PAIRS = 1 << 21  # pairs per row block or -p slice: bounds the fetched block
 
 
 def device_planes(data: CountData, device) -> tuple:
@@ -119,4 +123,50 @@ def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
         times["finalize"] += t2 - t1
         times["emit"] += time.monotonic() - t2
         times["blocks"] += 1
+    return times
+
+
+def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarray,
+                           device) -> dict:
+    """PCA-filtered comparison (computeScorePCA, CompareCounts.hpp:285-391)
+    on the device engine: the candidate pairs and their order are the exact
+    engine's (eval/driver.py:compute_score_pca), scored on `device` in
+    slices of at most BLOCK_PAIRS.  Returns the seconds spent in each stage
+    (candidates, upload, score = kernel and fetch, finalize, emit) and the
+    number of candidate pairs."""
+    times = dict(candidates=0.0, upload=0.0, score=0.0, finalize=0.0, emit=0.0, pairs=0)
+    t0 = time.monotonic()
+    radii = search_radii(data, opts)
+    out.write(HEADER)
+    out.write("\n")
+    ii_all, jj_all = pca_candidate_arrays(cloud, radii, opts.dim)
+    P = int(ii_all.shape[0])
+    times["candidates"] = time.monotonic() - t0
+    times["pairs"] = P
+    if not P:
+        return times
+    t0 = time.monotonic()
+    a, b, s = device_planes(data, device)
+    ii_d = torch.from_numpy(ii_all.astype(np.int32)).to(device)
+    jj_d = torch.from_numpy(jj_all.astype(np.int32)).to(device)
+    if a.is_cuda:
+        torch.cuda.synchronize(a.device)
+    times["upload"] = time.monotonic() - t0
+    lib = _load_row_formatter()
+    samp_w = _sample_strings(data) if lib is not None else None
+    for p0 in range(0, P, BLOCK_PAIRS):
+        p1 = min(p0 + BLOCK_PAIRS, P)
+        t0 = time.monotonic()
+        ints_d, sums_d = pair_kernel.pair_block_stats(
+            a, b, s, ii_d[p0:p1], jj_d[p0:p1], opts.min_cov, data.n_sites)
+        ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+        t1 = time.monotonic()
+        iu, ju = ii_all[p0:p1], jj_all[p0:p1]
+        f3, i9 = finalize(data, opts, iu, ju, ints, sums)
+        dist = pair_dist_sq(cloud, iu, ju, opts.dim)
+        t2 = time.monotonic()
+        _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w, dist=dist)
+        times["score"] += t1 - t0
+        times["finalize"] += t2 - t1
+        times["emit"] += time.monotonic() - t2
     return times

@@ -1,17 +1,18 @@
-"""Native (C++) host library, built from the JAX package's sources.
+"""Native (C++) host library.
 
 The host must parse and 2-bit encode FASTQ fast enough to feed the GPU, and
 parse, score and format count files fast enough for ``eval``; the Python
-paths top out far below that.  Two sources under ``ntsm_tpu/native/`` have
-no JAX in them, so this module compiles them by their paths with g++ into
-one library in ``build/ntsm_tpu_torch/`` at first use and binds it with
-ctypes:
+paths top out far below that.  This directory holds the port's own copies
+of the JAX package's two jax-free C++ sources; this module compiles them
+with g++ into one library in ``build/ntsm_tpu_torch/`` at first use and
+binds it with ctypes:
 
 * ``fastx_reader.cpp``: the FASTQ reader and packer (the analogue of the
   reference's kseq parser, vendor/kseq.h:178-219), the counts.txt parsers
   and the eval row formatter;
 * ``exact_pairs.cpp``: the exact engine's f64 pair scorer
-  (``ntsm_exact_pairs``).
+  (``ntsm_exact_pairs``) and the ``-p`` projection's helpers
+  (``ntsm_quantize_vals``, ``ntsm_project_exact``).
 
 Without g++, zlib or the sources, :func:`load` returns None after saying so
 on stderr, and callers use their Python paths (the JAX package's rule): the
@@ -31,11 +32,9 @@ import subprocess
 import sys
 import threading
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCES = tuple(
-    os.path.join(_REPO, "ntsm_tpu", "native", name)
-    for name in ("fastx_reader.cpp", "exact_pairs.cpp")
-)
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(_DIR))
+SOURCES = tuple(os.path.join(_DIR, name) for name in ("fastx_reader.cpp", "exact_pairs.cpp"))
 BUILD_DIR = os.path.join(_REPO, "build", "ntsm_tpu_torch")
 SO_PATH = os.path.join(BUILD_DIR, "libntsm_host.so")
 
@@ -151,6 +150,16 @@ def load():
             P, P, P, P,  # f3 f64 [P,3], i9 i64 [P,9], same u8, dist f64 or NULL
             P, L, L,  # samp bytes [n_samp, 6] of width samp_w, samp_w, n_samp
             P, L,  # outbuf, outcap
+        ]
+        lib.ntsm_quantize_vals.restype = None
+        lib.ntsm_quantize_vals.argtypes = [
+            P, P, ctypes.c_int,  # a, b count rows, dsize (bytes a count)
+            L, L, L, L,  # m rows, L sites, apitch, bpitch (elements)
+            P, D, P,  # norm f64 [L], mc, vals f64 [m, L]
+        ]
+        lib.ntsm_project_exact.restype = None
+        lib.ntsm_project_exact.argtypes = [
+            P, P, L, L, L, P,  # vals f64 [n, L], rotT long double [L, dim], n, L, dim, out f64
         ]
         _lib = lib
         return _lib

@@ -1,6 +1,7 @@
 """The port's ``eval`` CLI on --device cpu: stdout byte-equal to the
-reference fixtures with both engines, the merge files, the JAX CLI's error
-texts, the loaders against the JAX package's, and no silent move to the
+reference fixtures with both engines (-p, its single-sample PC columns and
+-b included), the merge files, the JAX CLI's error texts, the loaders
+against the JAX package's, the `auto` engine, and no silent move to the
 CPU."""
 
 import os
@@ -41,6 +42,12 @@ CASES = {
     "eval_all_g.tsv": ["-a", "-g", "80000"],
 }
 ENGINES = ["cuda", "exact"]
+PCA = ["-d", "5", "-p", "rotation.tsv", "-n", "center.txt"]
+# tests/test_parity_eval.py's -p cases as command lines
+PCA_CASES = {
+    "eval_pca.tsv": ["-a", *PCA, *COUNT_FILES],
+    "eval_single_pca.tsv": [*PCA, "sampleA_counts.txt"],
+}
 
 
 def _run(argv, capsys, mod=eval_cmd):
@@ -73,6 +80,60 @@ def test_eval_without_native_library_matches_fixture(capsys, monkeypatch, fixtur
                        *COUNT_FILES], capsys)
     assert rc == 0
     assert out == (FIX / fixture).read_text()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("fixture", sorted(PCA_CASES))
+def test_eval_pca_matches_fixture(capsys, monkeypatch, fixture, engine):
+    monkeypatch.chdir(FIX)
+    rc, out, err = _run(["--device", "cpu", "--engine", engine, *PCA_CASES[fixture]], capsys)
+    assert rc == 0
+    assert out == (FIX / fixture).read_text()
+    assert "all-to-all" not in err
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_eval_pca_without_native_library_matches_fixture(capsys, monkeypatch, engine):
+    """The Python projection, exact pair loop and row formatting print the
+    same -p table as the host library."""
+    from ntsm_tpu_torch import native
+
+    monkeypatch.setattr(native, "load", lambda: None)
+    monkeypatch.chdir(FIX)
+    rc, out, _ = _run(["--device", "cpu", "--engine", engine, *PCA_CASES["eval_pca.tsv"]],
+                      capsys)
+    assert rc == 0
+    assert out == (FIX / "eval_pca.tsv").read_text()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_eval_debug_matches_fixture(capsys, monkeypatch, engine):
+    """-b: the reference's header and its rows once sorted (the reference
+    iterates a hash set; tests/test_parity_eval.py:74-92)."""
+    monkeypatch.chdir(FIX)
+    rc, out, _ = _run(["--device", "cpu", "--engine", engine, *PCA, "-b", "debug_groups.txt",
+                       *COUNT_FILES], capsys)
+    assert rc == 0
+    got = out.splitlines()
+    want = (FIX / "eval_debug.tsv").read_text().splitlines()
+    assert got[0] == want[0]
+    assert sorted(got[1:]) == sorted(want[1:])
+
+
+def test_debug_with_all_exits_1_after_header(capsys, monkeypatch):
+    """-b -a: the header, then exit 1, as the JAX CLI (and the reference)."""
+    monkeypatch.chdir(FIX)
+    argv = ["--engine", "exact", "-a", *PCA, "-b", "debug_groups.txt", *COUNT_FILES]
+    with pytest.raises(SystemExit) as want_exit:
+        jax_eval_cmd.run(argv)
+    want = capsys.readouterr()
+    with pytest.raises(SystemExit) as got_exit:
+        eval_cmd.run(["--device", "cpu", *argv[2:]])
+    got = capsys.readouterr()
+    assert got_exit.value.code == want_exit.value.code == 1
+    assert got.out == want.out and got.out.startswith("sample1\t")
+    assert got.out.rstrip("\n").endswith("\tcorrect") and got.out.count("\n") == 1
+    assert "Currently unable to output all pairs in debug mode." in got.err
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -150,12 +211,8 @@ def test_only_merge_without_merge_matches_jax_cli(capsys):
     assert "cannot be used without --merge" in got.err
 
 
-@pytest.mark.parametrize("flag", [["-p", "rot.tsv", "-n", "norm.txt"], ["-b", "groups.txt"],
-                                  ["--distributed"]])
-def test_unported_modes_exit_1(capsys, monkeypatch, tmp_path, flag):
-    monkeypatch.chdir(tmp_path)
-    for name in ("rot.tsv", "norm.txt", "groups.txt"):
-        (tmp_path / name).write_text("")
+@pytest.mark.parametrize("flag", [["--distributed"]])
+def test_unported_modes_exit_1(capsys, flag):
     rc, out, err = _run([*flag, "--device", "cpu", str(FIX / "sampleA_counts.txt"),
                          str(FIX / "sampleB_counts.txt")], capsys)
     assert rc == 1 and out == ""
@@ -177,9 +234,38 @@ def test_device_cuda_without_card_exits_1(capsys):
     assert rc == 1
     assert out == ""  # nothing was scored, on the CPU or elsewhere
     assert "--device cuda needs a CUDA device" in err
-    # auto takes the exact host engine for a small cohort: no card needed
-    rc, out, _ = _run(["-a", *args], capsys)
-    assert rc == 0 and out.startswith("sample1\t")
+    # auto is the card's engine wherever pairs are scored, at any size
+    for flags in (["-a"], [], ["-a", "-p", str(FIX / "rotation.tsv"), "-n",
+                               str(FIX / "center.txt"), "-d", "5"]):
+        rc, out, err = _run([*flags, *args], capsys)
+        assert rc == 1 and out == "", flags
+        assert "--device cuda needs a CUDA device" in err
+    # single-sample QC does no device work: no card needed
+    rc, out, _ = _run([args[0]], capsys)
+    assert rc == 0 and out.startswith("sample\tcov\t")
+
+
+def test_auto_engine_resolves_to_cuda(capsys, monkeypatch):
+    """--engine auto runs the device engine for -a, the default all-vs-all
+    and -p, and the exact engine where no pairs are scored (one file,
+    --only_merge, -b)."""
+    from ntsm_tpu_torch.eval import driver
+
+    seen = []
+    monkeypatch.setattr(driver, "run_eval",
+                        lambda data, opts, out, device="cuda": seen.append((opts.engine, device)))
+    monkeypatch.chdir(FIX)
+    cases = {
+        "cuda": [["-a", *COUNT_FILES], COUNT_FILES, ["-a", *PCA, *COUNT_FILES]],
+        "exact": [COUNT_FILES[:1], ["-o", "-e", "unused.txt", *COUNT_FILES[:2]],
+                  [*PCA, "-b", "debug_groups.txt", *COUNT_FILES]],
+    }
+    for engine, argvs in cases.items():
+        for argv in argvs:
+            seen.clear()
+            assert _run(["--device", "cpu", *argv], capsys)[0] == 0
+            assert seen == [(engine, "cpu")], (argv, seen)
+    assert not hasattr(eval_cmd, "AUTO_EXACT_MAX")
 
 
 def test_main_dispatches_eval(capsys, monkeypatch):

@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths, ``ntsm count``, ``ntsm eval -a`` and
-``ntsm eval -p``, through their CLI entry points at human scale, after
-building the CUDA kernels from ``ntsm_tpu_torch/csrc/`` and holding each
-against its plain PyTorch version on the card.  Imports neither jax nor
-ntsm_tpu.  Phases, each printing its result; any failure raises and ends
-the run with a non-zero exit:
+Drives the port's paths, ``ntsm count`` (the v3 engine through the CLI,
+the v1 engine through ``run_count(version=1)``), ``ntsm eval -a``,
+``ntsm eval -p`` and the three experiment programs (P1-P3), through their
+entry points at human scale, after building the CUDA kernels from
+``ntsm_tpu_torch/csrc/`` and holding each against its plain PyTorch version
+on the card.  Imports neither jax nor ntsm_tpu.  Phases, each printing its
+result; any failure raises and ends the run with a non-zero exit:
 
   0. card name and power limit (nvidia-smi), torch/CUDA versions;
      exit 1 if there is no CUDA device
@@ -48,6 +49,22 @@ the run with a non-zero exit:
      kernel launched and the all-vs-all one not
  11. the -p scorer at N = 3202 of the same design, in memory; its stage
      times and its first rows against the exact engine
+ 12. K2 (the window hash from unpacked codes) against its plain version at
+     B = 32768, L = 256, k = 19, 31 and 32: random codes with 2% Ns and
+     ragged lengths in [0, L]; bit-exact, with CUDA-event times per batch
+ 13. the v1 path: ``run_count(..., version=1)`` on phase 3's sites and
+     reads, one read a row; its counts.txt must be byte-identical to phase
+     3's golden text, K2's launch counter must equal the batch count and no
+     other count or eval kernel may launch; Mbase/s, and one batch split
+     between K2 and the plain bucket probe (CUDA events)
+ 14. P1 and P2: the two gather programs as a user runs them
+     (``python -m ntsm_tpu_torch.experiments.exp_pallas_gather[2]``): each
+     of their six forms at the scripts' shapes and seed equal to its plain
+     version, with the kernel's time and the plain version's, which is the
+     one PyTorch call for the form
+ 15. P3: the DMA-probe program: the ring at depths 4, 16 and 64 on the
+     script's 32 MiB plane and 512 x 4096 indices equal to the plain XOR,
+     with ms and M rows/s beside the plain fp[idx] gather's
   then the card line, a kernels JSON line, and the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -61,7 +78,13 @@ Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) at the card's 3.35 TB/s and its operations at the
 peak rate of their type: 34 TFLOP/s for f64 outside the tensor cores
 (NVIDIA's H100 SXM data sheet) and 67 T/s for 32-bit operations (the
-float32 rate; a 64-bit integer operation counts as two).
+float32 rate; a 64-bit integer operation counts as two).  Times are
+device times (``ntsm_tpu_torch/utils/timing.py:device_ms``: each call
+queued behind a device-side spin, between two events), except for the
+calls that wait for the device inside, K4's plain version and the
+candidate-pair kernel's wrapper (its index check), timed with events
+around each call (``event_ms``), and the pair kernels' plain versions,
+timed once.
 """
 
 from __future__ import annotations
@@ -71,13 +94,13 @@ import io
 import json
 import os
 import shutil
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+from ntsm_tpu_torch.utils.timing import card_line, device_ms, event_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
@@ -101,32 +124,6 @@ PAIR_SITE_F64_OPS = 8  # a valid pair-site: 2 divisions, 2 products, 4 sums
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip()
-
-
-def cuda_ms(fn, iters: int = 15) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
@@ -186,8 +183,8 @@ def check_window_hash(device, rng, k: int, card: str) -> dict:
             np.array_equal(h_host[r][vg], hg[vg].view(np.int64)),
             f"window_hash k={k}: h != host row {r}",
         )
-    ms = cuda_ms(lambda: hash_kernel.window_hashes(packed, vbits, k, L))
-    plain_ms = cuda_ms(lambda: window_hashes_packed(packed, vbits, k, L))
+    ms = device_ms(lambda: hash_kernel.window_hashes(packed, vbits, k, L))
+    plain_ms = device_ms(lambda: window_hashes_packed(packed, vbits, k, L))
     # bytes: packed bases and validity bits in, h (i64) and valid (u8) out;
     # operations: the canonical min and hash64 of each window, ~25 64-bit
     # integer operations
@@ -241,8 +238,8 @@ def check_probe(device, rng, card: str) -> dict:
     diag = d_k.tolist()
     check(diag[2] >= n_planted > 0, f"probe_count: {diag[2]} hits for {n_planted} planted k-mers")
     scratch = torch.zeros_like(c_k)
-    ms = cuda_ms(lambda: kernel_v3.probe_count(h, valid, tab, scratch))
-    plain_ms = cuda_ms(lambda: kernel_v3.probe_and_count(
+    ms = device_ms(lambda: kernel_v3.probe_count(h, valid, tab, scratch))
+    plain_ms = event_ms(lambda: kernel_v3.probe_and_count(
         h, valid, tab.fp, tab.keys, tab.vals, scratch, n_buckets=tab.n_buckets, bbits=tab.bbits
     ))
     # bytes: h and valid in, the fingerprint plane (every bucket is probed),
@@ -332,12 +329,16 @@ def reset_launches() -> None:
     """Every kernel's launch counter to 0, just before a path is driven."""
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
     from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
-    hash_kernel.launches = kernel_v3.launches = 0
+    hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
     pair_kernel.launches = pair_kernel.launches_block = 0
+    gather.launches.update(dict.fromkeys(gather.launches, 0))
+    exp_dma_probe.launches = 0
 
 
-def main_path(device, work: str, rng, card: str) -> dict:
+def main_path(device, work: str, rng, card: str) -> tuple:
+    """Phase 3; returns (launches, sites path, reads path, golden counts.txt)."""
     import torch
 
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
@@ -390,7 +391,7 @@ def main_path(device, work: str, rng, card: str) -> dict:
     print(f"phase 3: site load {load_sec:.2f} s; engine (table build + {n_batches} "
           f"batches) {eng_sec:.2f} s, {n_bases / eng_sec / 1e6:.2f} Mbase/s [{card}]",
           flush=True)
-    return launches
+    return launches, sites, fq, want
 
 
 # ---------------------------------------------------------------- phase 4
@@ -585,7 +586,7 @@ def check_pair_stats(device, mx: np.ndarray, card: str) -> dict:
                               s[r0:, :N_SITES].cpu().numpy(), mc, iu - r0, ju - r0)
             check(np.array_equal(fk[:, : iu.size].cpu().numpy(), want),
                   f"pair_stats -c {mc} rows [{r0},{r1}): joint/ss not bit-equal to the exact engine")
-            ms = cuda_ms(lambda: pair_kernel.pair_stats(a, b, s, r0, r1, mc, N_SITES), iters=5)
+            ms = device_ms(lambda: pair_kernel.pair_stats(a, b, s, r0, r1, mc, N_SITES), iters=5)
             P = ik.shape[1]
             # bytes: rows r0.. of A, B, S read once, 36 B of results a pair;
             # operations: the f64 ones of each valid pair-site
@@ -829,7 +830,7 @@ def check_pair_block_stats(device, mx: np.ndarray, card: str) -> dict:
                           remap[ii[sub]], remap[jj[sub]])
         check(np.array_equal(fk[:, sub].cpu().numpy(), want),
               f"pair_block_stats -c {mc}: joint/ss not bit-equal to the exact engine")
-        ms = cuda_ms(lambda: pair_kernel.pair_block_stats(a, b, s, it, jt, mc, N_SITES), iters=5)
+        ms = event_ms(lambda: pair_kernel.pair_block_stats(a, b, s, it, jt, mc, N_SITES), iters=5)
         # bytes: each distinct row of A, B, S read once, the pair list, 36 B
         # of results a pair; operations: the f64 ones of each valid pair-site
         touched = np.unique(np.concatenate([ii, jj])).size
@@ -967,10 +968,166 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> None:
           flush=True)
 
 
-def main() -> int:
+# ---------------------------------------------------------------- phases 12-13
+
+
+def check_window_hash_codes(device, rng, k: int, card: str) -> dict:
     import torch
 
-    import ntsm_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from ntsm_tpu_torch.count import hash_kernel
+    from ntsm_tpu_torch.count.kernel import window_hashes_codes_plain
+
+    codes_np = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    codes_np[rng.random((B, L)) < 0.02] = 4
+    codes = torch.from_numpy(codes_np).to(device)
+    lengths = torch.from_numpy(rng.integers(0, L + 1, size=B).astype(np.int32)).to(device)
+    h_k, v_k = hash_kernel.window_hashes_codes(codes, lengths, k)
+    h_p, v_p = window_hashes_codes_plain(codes, lengths, k)
+    torch.cuda.synchronize()
+    check(torch.equal(v_k, v_p), f"window_hash_codes k={k}: valid differs from plain")
+    err = max_abs_err(h_k[v_k], h_p[v_p])
+    check(err == 0.0, f"window_hash_codes k={k}: h differs from plain where valid")
+    ms = device_ms(lambda: hash_kernel.window_hashes_codes(codes, lengths, k))
+    plain_ms = device_ms(lambda: window_hashes_codes_plain(codes, lengths, k))
+    # bytes: codes and lengths in, h (i64) and valid (u8) out; operations:
+    # the canonical min and hash64 of each window, ~25 64-bit integer ones
+    n_bytes = codes.nbytes + lengths.nbytes + h_k.nbytes + v_k.nbytes
+    b = bound(n_bytes, v_k.numel() * 25 * 2, OPS32_PER_S)
+    print(f"phase 12: window_hash_codes k={k} B={B} L={L}: bit-exact vs plain "
+          f"({int(v_k.sum())} valid windows); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"per batch, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+          f"{n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def v1_path(device, sites: str, fq: str, want: str, card: str) -> int:
+    """Phase 13: the v1 engine on phase 3's input; returns K2's launches."""
+    import torch
+
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count.engine import run_count
+    from ntsm_tpu_torch.count.kernel import bucket_probe, make_table_arrays
+    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.io.countfile import format_counts
+    from ntsm_tpu_torch.io.fastx import BatchReader
+    from ntsm_tpu_torch.io.sites import build_lookup, load_site_table
+    from ntsm_tpu_torch.options import Options
+
+    table = load_site_table(sites, K, allow_dupes=False)
+    n_batches = sum(1 for _ in BatchReader([fq], k=K, seglen=L, batch=B))
+    reset_launches()
+    t0 = time.monotonic()
+    res = run_count(table, [fq], Options(), device=device, version=1)
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = hash_kernel.launches_codes
+    check(hash_kernel.launches == kernel_v3.launches == 0,
+          "the v1 engine launched window_hash or probe_count")
+    check(pair_kernel.launches == pair_kernel.launches_block == 0,
+          "the v1 engine launched an eval kernel")
+    mx, sm = res.site_max_sum(table)
+    got = format_counts(table.site_ids, mx, sm, table.distinct, res.total_kmers, K)
+    check(got == want, "v1: counts.txt differs from phase 3's --engine golden")
+    check(launches == n_batches, f"window_hash_codes launched {launches} times for "
+          f"{n_batches} batches")
+
+    # one batch: K2, then the plain bucket probe
+    batch = next(iter(BatchReader([fq], k=K, seglen=L, batch=B)))
+    codes = torch.from_numpy(batch.codes).to(device)
+    lengths = torch.from_numpy(batch.lengths).to(device)
+    keys, vals = make_table_arrays(build_lookup(table.kmer_hashes), table.n_kmers, device)
+    scratch = torch.zeros(table.n_kmers + 1, dtype=torch.int32, device=device)
+    k2_ms = device_ms(lambda: hash_kernel.window_hashes_codes(codes, lengths, K))
+    h, valid = hash_kernel.window_hashes_codes(codes, lengths, K)
+    probe_ms = device_ms(lambda: bucket_probe(h, valid, keys, vals, scratch,
+                                            n_kmers=table.n_kmers))
+    print(f"phase 13: run_count(version=1) on the card, {res.total_reads} reads in "
+          f"{n_batches} batches of {B} x {L} (one read a row): counts.txt byte-identical "
+          f"to golden; window_hash_codes launches {launches} = {n_batches} batches, no "
+          f"other kernel; {sec:.2f} s (table build + batches), "
+          f"{res.total_bases / sec / 1e6:.2f} Mbase/s; one batch: K2 {k2_ms:.4f} ms, "
+          f"bucket probe (torch) {probe_ms:.4f} ms [{card}]", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phases 14-15
+
+
+def gather_program(device, name: str, card: str) -> dict:
+    """Phase 14: P1 ("p1") or P2 ("p2") as a user runs it; each form must
+    equal its plain version (tolerance 0).  Returns its kernels-line row:
+    the program's launches and the sums over its forms of the times it
+    measured."""
+    import torch
+
+    from ntsm_tpu_torch.experiments import exp_pallas_gather, exp_pallas_gather2, gather
+
+    module = exp_pallas_gather if name == "p1" else exp_pallas_gather2
+    reset_launches()
+    results = module.run()
+    torch.cuda.synchronize()
+    launches = dict(gather.launches)
+    check(results is not None, f"{module.__name__} ran nothing")
+    row = dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, bound_by="bytes")
+    for r in results:
+        check(r["correct"], f"{name} {r['label']}: differs from its plain version")
+        check(launches[r["form"]] > 0, f"{name}: {r['form']} was not launched")
+        b = bound(r["n_bytes"], 0, OPS32_PER_S)
+        n = r["n"]
+        print(f"phase 14: {name} {r['label']} ({r['form']}, {n} gathers): equal to plain; "
+              f"kernel {r['ms']:.4f} ms = {n / r['ms'] / 1e3:.0f} M gathers/s, plain = "
+              f"{gather.FORMS[r['form']][2]} {r['library_ms']:.4f} ms = "
+              f"{n / r['library_ms'] / 1e3:.0f} M gathers/s, bound {b['bound_ms']:.4f} ms "
+              f"({r['n_bytes'] / 1e6:.2f} MB) [{card}]", flush=True)
+        for key in ("ms", "plain_ms", "library_ms"):
+            row[key] += r[key]
+        row["bound_ms"] += b["bound_ms"]
+    forms = sorted({r["form"] for r in results})
+    row["launches"] = sum(launches[f] for f in forms)
+    print(f"phase 14: {module.__name__}: launches {row['launches']} (forms {forms}); the "
+          f"kernels line sums the {len(results)} forms' times", flush=True)
+    return row
+
+
+def dma_probe_program(device, card: str) -> dict:
+    """Phase 15: P3 as a user runs it; the ring must equal the plain XOR at
+    every depth.  Returns its kernels-line row (the depth-64 time)."""
+    import torch
+
+    from ntsm_tpu_torch.experiments import exp_dma_probe as p3
+
+    reset_launches()
+    res = p3.run(device)
+    torch.cuda.synchronize()
+    launches = p3.launches
+    check(res is not None, "exp_dma_probe ran nothing")
+    check(launches > 0, "exp_dma_probe did not launch dma_probe")
+    check(res["plane_bytes"] < res["l2_bytes"],
+          f"the {res['plane_bytes']} B plane does not fit the {res['l2_bytes']} B L2")
+    b = bound(res["n_bytes"], res["n_ops"], OPS32_PER_S)
+    n = res["n_rows"]
+    row = {}
+    for d in res["depths"]:
+        check(d["correct"], f"dma_probe depth={d['depth']}: differs from the plain XOR")
+        print(f"phase 15: dma_probe depth={d['depth']}, {p3.SCAN} x {p3.N_IDX} random rows of "
+              f"the {res['plane_bytes'] / 2**20:.0f} MiB plane (L2-resident: L2 "
+              f"{res['l2_bytes'] / 1e6:.0f} MB): equal to the plain XOR; kernel {d['ms']:.4f} ms "
+              f"= {n / d['ms'] / 1e3:.1f} M rows/s; plain fp[idx] gather alone "
+              f"{res['gather_ms']:.4f} ms = {n / res['gather_ms'] / 1e3:.1f} M rows/s, plain "
+              f"gather + XOR tree {res['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}, {res['n_bytes'] / 1e6:.1f} MB) [{card}]", flush=True)
+        if d["depth"] == max(p3.DEPTHS):
+            row = dict(launches=launches, max_abs_err=0.0, ms=d["ms"],
+                       plain_ms=res["plain_ms"], library_ms=None, **b)
+    return row
+
+
+# ---------------------------------------------------------------- main
+
+
+def main() -> int:
+    import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -1001,7 +1158,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        launches = main_path(device, work, rng, card)
+        launches, sites, fq, golden_text = main_path(device, work, rng, card)
         fixtures(device)
 
         t0 = time.monotonic()
@@ -1017,6 +1174,10 @@ def main() -> int:
         rotation = spread_rotation()
         launches["pair_block_stats"] = eval_pca_path(device, work, rotation, card)
         eval_pca_cohort(device, rotation, work, card)
+        hashes_codes = {k: check_window_hash_codes(device, rng, k, card) for k in (19, 31, 32)}
+        launches["window_hash_codes"] = v1_path(device, sites, fq, golden_text, card)
+        gathers = {name: gather_program(device, name, card) for name in ("p1", "p2")}
+        dma = dma_probe_program(device, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1037,6 +1198,16 @@ def main() -> int:
              source="ntsm_tpu_torch/csrc/pair_block_stats.cu",
              replaces="ntsm_tpu/eval/kernels.py:317",
              launches=launches["pair_block_stats"], **block),
+        dict(name="window_hash_codes", route="cuda",
+             source="ntsm_tpu_torch/csrc/window_hash.cu",
+             replaces="ntsm_tpu/count/pallas_kernel.py:148",
+             launches=launches["window_hash_codes"], **hashes_codes[K]),
+        dict(name="gather_p1", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
+             replaces="scripts/exp_pallas_gather.py:10", **gathers["p1"]),
+        dict(name="gather_p2", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
+             replaces="scripts/exp_pallas_gather2.py:11", **gathers["p2"]),
+        dict(name="dma_probe", route="cuda", source="ntsm_tpu_torch/csrc/dma_probe.cu",
+             replaces="scripts/exp_dma_probe.py:53", **dma),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

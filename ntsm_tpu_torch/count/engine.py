@@ -1,5 +1,12 @@
-"""Counting engine: a host feed thread and the two count kernels
-(counterpart of ntsm_tpu/count/engine.py:run_count_v3).
+"""Counting engines (counterpart of ntsm_tpu/count/engine.py).
+
+:func:`run_count` runs the v3 engine by default (run_count_v3 there): a
+host feed thread and the two count kernels, described below.  With
+``version=1`` it runs :func:`run_count_v1`, the unpacked-codes engine (K2
+and the plain bucket probe of count/kernel.py); the v2 engine is not yet
+ported.
+
+The v3 engine:
 
 A producer thread reads batches (the native reader releases the GIL),
 2-bit packs them and fuses each into one pinned [rows, 3L/8] u8 host
@@ -32,10 +39,11 @@ import torch
 
 from ntsm_tpu_torch.count.golden import CountResult, max_counts_threshold
 from ntsm_tpu_torch.count.hash_kernel import window_hashes
+from ntsm_tpu_torch.count.kernel import count_step, make_table_arrays
 from ntsm_tpu_torch.count.kernel_v2 import pack_batch_fast
 from ntsm_tpu_torch.count.kernel_v3 import TableV3, probe_count
 from ntsm_tpu_torch.io.fastx import BatchReader, ParallelFileReader, _bounded_put
-from ntsm_tpu_torch.io.sites import SiteTable
+from ntsm_tpu_torch.io.sites import SiteTable, build_lookup
 from ntsm_tpu_torch.options import Options
 from ntsm_tpu_torch.utils.formats import cpp_general
 
@@ -66,8 +74,10 @@ def run_count(
     opts: Options,
     config: EngineConfig | None = None,
     device="cuda",
+    version: int = 3,
 ) -> CountResult:
-    """Count the site k-mers of `filenames` on `device` ("cuda" or "cpu").
+    """Count the site k-mers of `filenames` on `device` ("cuda" or "cpu")
+    with engine `version` (3, the default, or 1).
 
     "cuda" needs a CUDA device and runs the hand-written kernels; "cpu"
     runs their plain PyTorch versions.  There is no fallback between the
@@ -75,6 +85,16 @@ def run_count(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_count: device cuda needs a CUDA device, and none is available")
+    if version == 1:
+        return run_count_v1(table, filenames, opts, config, device)
+    if version == 2:
+        raise NotImplementedError("run_count: the v2 engine (version=2) is not yet ported")
+    if version != 3:
+        raise ValueError(f"run_count: no engine version {version}")
+    return _run_count_v3(table, filenames, opts, config, device)
+
+
+def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
     config = config or EngineConfig(
         batch_reads=opts.batch_reads,
         segment_len=opts.segment_len,
@@ -273,6 +293,69 @@ def run_count(
         counts=host_counts_now(),
         total_kmers=total_kmers,
         total_hits=total_hits,
+        total_bases=total_bases,
+        total_reads=total_reads,
+        early_term=early,
+    )
+
+
+def run_count_v1(
+    table: SiteTable,
+    filenames,
+    opts: Options,
+    config: EngineConfig | None = None,
+    device="cuda",
+) -> CountResult:
+    """The v1 engine (ntsm_tpu/count/engine.py:run_count_v1): one read
+    segment a row, each batch uploaded as [B, L] u8 codes and [B] int32
+    lengths (pinned, non-blocking on the card) and counted by
+    count/kernel.py:count_step on PyTorch's current stream.  The counts and
+    both totals stay on the device; -m is checked every
+    early_term_check_every batches, so a -m run stops on the same batch as
+    the JAX v1 engine.  No checkpoint; -t is ignored, as in the JAX v1."""
+    device = torch.device(device)
+    config = config or EngineConfig(
+        batch_reads=opts.batch_reads, segment_len=opts.segment_len
+    )
+    k, n_kmers = table.k, table.n_kmers
+    keys, vals = make_table_arrays(build_lookup(table.kmer_hashes), n_kmers, device)
+    counts = torch.zeros(n_kmers + 1, dtype=torch.int32, device=device)
+    total_kmers = torch.zeros((), dtype=torch.int64, device=device)
+    total_hits = torch.zeros((), dtype=torch.int64, device=device)
+    max_counts = max_counts_threshold(n_kmers, opts.cov_thresh)
+    check_term = max_counts != 0 and not math.isinf(max_counts)
+    total_bases = total_reads = n_batches = 0
+    early = False
+    pin = device.type == "cuda"
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(device, non_blocking=True) if pin else t
+
+    reader = BatchReader(filenames, k=k, seglen=config.segment_len, batch=config.batch_reads)
+    for batch in reader:
+        n_valid, n_found = count_step(
+            upload(batch.codes), upload(batch.lengths), keys, vals, counts,
+            k=k, n_kmers=n_kmers,
+        )
+        total_kmers += n_valid
+        total_hits += n_found
+        total_bases += batch.n_bases
+        total_reads += batch.n_reads
+        n_batches += 1
+        if check_term and n_batches % config.early_term_check_every == 0:
+            if int(total_hits) > max_counts:
+                early = True
+                break
+    if check_term and not early:
+        early = int(total_hits) > max_counts
+    if early:
+        print("Reached desired (-m) threshold", file=sys.stderr)
+
+    return CountResult(
+        counts=counts[:n_kmers].cpu().numpy().astype(np.int64),
+        total_kmers=int(total_kmers),
+        total_hits=int(total_hits),
         total_bases=total_bases,
         total_reads=total_reads,
         early_term=early,

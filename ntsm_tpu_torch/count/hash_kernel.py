@@ -1,11 +1,16 @@
-"""Kernel 1 of the count path: the window hash
-(counterpart of ntsm_tpu/count/pallas_kernel.py).
+"""The window hash of the count path, both entry points of
+``csrc/window_hash.cu`` (counterpart of ntsm_tpu/count/pallas_kernel.py):
 
-:func:`window_hashes` is the wrapper the engine calls.  For CPU tensors it
-runs the plain PyTorch version (kernel_v2.window_hashes_packed); for CUDA
-tensors it launches ``csrc/window_hash.cu`` or raises — it never falls back.
-``launches`` counts the kernel launches, so a run can show that its main
-path went through the kernel.
+* K1, :func:`window_hashes`, from a 2-bit packed batch: the v3 engine's
+  (count/engine.py:run_count); plain version kernel_v2.window_hashes_packed.
+* K2, :func:`window_hashes_codes`, from unpacked u8 codes and row lengths:
+  the v1 engine's (count/kernel.py:count_step); plain version
+  kernel_v2.window_hashes_codes_plain.
+
+For CPU tensors each wrapper runs its plain PyTorch version; for CUDA
+tensors it launches its kernel or raises — it never falls back.
+``launches`` (K1) and ``launches_codes`` (K2) count the kernel launches, so
+a run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -15,16 +20,23 @@ import ctypes
 import torch
 
 from ntsm_tpu_torch import csrc
-from ntsm_tpu_torch.count.kernel_v2 import window_hashes_packed
+from ntsm_tpu_torch.count.kernel_v2 import window_hashes_codes_plain, window_hashes_packed
 
 launches = 0
+launches_codes = 0
+
+
+def _check_k(k: int, L: int) -> None:
+    if not 1 <= k <= 32:
+        raise ValueError(f"k must be in [1, 32], got {k}")
+    if L < k:
+        raise ValueError(f"segment length {L} must be >= k={k}")
 
 
 def _check_packed(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: int) -> None:
-    if not 1 <= k <= 32:
-        raise ValueError(f"k must be in [1, 32], got {k}")
-    if L % 8 or L < k:
-        raise ValueError(f"segment length {L} must be a multiple of 8 and >= k={k}")
+    _check_k(k, L)
+    if L % 8:
+        raise ValueError(f"segment length {L} must be a multiple of 8")
     for name, t, width in (("packed", packed, L // 4), ("vbits", vbits, L // 8)):
         if t.dtype != torch.uint8:
             raise TypeError(f"{name} must be uint8, got {t.dtype}")
@@ -61,4 +73,43 @@ def window_hashes(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: int):
     )
     csrc.check(lib, rc, "window_hash")
     launches += 1
+    return h, valid
+
+
+def _check_codes(codes: torch.Tensor, lengths: torch.Tensor, k: int) -> None:
+    if codes.dtype != torch.uint8:
+        raise TypeError(f"codes must be uint8, got {codes.dtype}")
+    if codes.dim() != 2 or codes.stride(1) != 1:
+        raise ValueError(f"codes must be [B, L] with contiguous rows, got {tuple(codes.shape)}")
+    _check_k(k, codes.shape[1])
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if lengths.shape != (codes.shape[0],) or not lengths.is_contiguous():
+        raise ValueError(f"lengths must be a contiguous [{codes.shape[0]}]")
+    if codes.device != lengths.device:
+        raise ValueError("codes and lengths must be on the same device")
+
+
+def window_hashes_codes(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """(h [B, W] int64, valid [B, W] bool) for every window of a [B, L]
+    uint8 code batch with [B] int32 row lengths (K2); a base is bad when its
+    code is > 3 or its position is >= its row's length."""
+    global launches_codes
+    _check_codes(codes, lengths, k)
+    if codes.device.type == "cpu":
+        return window_hashes_codes_plain(codes, lengths, k)
+    if codes.device.type != "cuda":
+        raise ValueError(f"window_hashes_codes: unsupported device {codes.device}")
+    lib = csrc.load()
+    (B, L), W = codes.shape, codes.shape[1] - k + 1
+    h = torch.empty((B, W), dtype=torch.int64, device=codes.device)
+    valid = torch.empty((B, W), dtype=torch.bool, device=codes.device)
+    rc = lib.ntsm_window_hash_codes(
+        ctypes.c_void_p(codes.data_ptr()), codes.stride(0),
+        ctypes.c_void_p(lengths.data_ptr()), B, L, k,
+        ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+        csrc.stream_ptr(codes.device),
+    )
+    csrc.check(lib, rc, "window_hash_codes")
+    launches_codes += 1
     return h, valid

@@ -3,8 +3,9 @@
 
 Reads travel to the device 2-bit packed (4 bases/byte) with one validity
 bit per base: 3L/8 bytes per row instead of L.  The plain PyTorch window
-hash here is the reference that kernel 1 (count/hash_kernel.py,
-csrc/window_hash.cu) is held to, and what its wrapper runs for CPU tensors.
+hashes here, from packed bases (K1's) and from unpacked codes (K2's), are
+the references that the kernels (count/hash_kernel.py, csrc/window_hash.cu)
+are held to, and what their wrappers run for CPU tensors.
 """
 
 from __future__ import annotations
@@ -83,7 +84,14 @@ def window_hashes_packed(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: i
     hash's bits, valid [B, W] bool), W = L - k + 1; h at an invalid window
     is the hash of whatever codes it holds, like the JAX stage's."""
     codes, base_valid = unpack_codes(packed, vbits)
-    B, W = codes.shape[0], L - k + 1
+    return hash_windows(codes, base_valid, k)
+
+
+def hash_windows(codes: torch.Tensor, base_valid: torch.Tensor, k: int):
+    """(h, valid) of every window of [B, L] codes in 0..3 with a [B, L]
+    bool "base is real and inside the read": the step both plain window
+    hashes share (K1's packed one and K2's unpacked one, both here)."""
+    B, W = codes.shape[0], codes.shape[1] - k + 1
     c = codes.to(torch.int64)
     comp = 3 ^ c
     fw = torch.zeros((B, W), dtype=torch.int64, device=codes.device)
@@ -97,3 +105,16 @@ def window_hashes_packed(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: i
     csz = torch.nn.functional.pad(torch.cumsum(bad, dim=1, dtype=torch.int32), (1, 0))
     valid = (csz[:, k:] - csz[:, :-k]) == 0
     return h, valid
+
+
+def window_hashes_codes_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """Canonical hash and validity of every window of a [B, L] code block
+    (kernel K2's plain version; ntsm_tpu/count/kernel.py:window_hashes).
+
+    A base is bad when its code is > 3 or its position is >= its row's
+    length.  Returns (h [B, W] int64, the uint64 hash's bits; valid [B, W]
+    bool), W = L - k + 1; h at an invalid window is the hash of whatever
+    codes it holds, like the JAX stage's."""
+    L = codes.shape[1]
+    inside = torch.arange(L, device=codes.device)[None, :] < lengths[:, None]
+    return hash_windows(codes & 3, (codes <= 3) & inside, k)

@@ -6,7 +6,8 @@ once, links them into ``build/ntsm_tpu_torch/libntsm_kernels.so`` (a
 few seconds; nothing here includes PyTorch's headers) and binds the entry
 points with ctypes.  Each entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; the wrappers (``ntsm_tpu_torch.count.hash_kernel``,
-``count.kernel_v3``, ``eval.pair_kernel``) raise on a non-zero code.
+which ``count.kernel``'s v1 step calls, ``count.kernel_v3``, ``eval.pair_kernel``,
+``experiments.gather`` and ``experiments.exp_dma_probe``) raise on a non-zero code.
 Nothing is compiled when this module is imported, so the CPU tests import
 it freely.
 """
@@ -110,12 +111,24 @@ def load():
         P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
         lib.ntsm_window_hash.restype = I
         lib.ntsm_window_hash.argtypes = [P, L, P, L, I, I, I, P, P, P]
+        lib.ntsm_window_hash_codes.restype = I
+        lib.ntsm_window_hash_codes.argtypes = [P, L, P, I, I, I, P, P, P]
         lib.ntsm_probe_count.restype = I
         lib.ntsm_probe_count.argtypes = [P, P, L, P, P, P, L, I, P, P, P]
         lib.ntsm_pair_stats.restype = I
         lib.ntsm_pair_stats.argtypes = [P, P, P, L, I, L, I, I, L, P, P, L, P]
         lib.ntsm_pair_block_stats.restype = I
         lib.ntsm_pair_block_stats.argtypes = [P, P, P, L, L, P, P, L, L, P, P, P]
+        lib.ntsm_gather_1d.restype = I
+        lib.ntsm_gather_1d.argtypes = [P, P, L, P, P]
+        lib.ntsm_take_axis0.restype = I
+        lib.ntsm_take_axis0.argtypes = [P, I, P, L, P, P]
+        lib.ntsm_take_axis1.restype = I
+        lib.ntsm_take_axis1.argtypes = [P, I, P, I, I, P, P]
+        lib.ntsm_row_gather.restype = I
+        lib.ntsm_row_gather.argtypes = [P, I, P, I, P, P]
+        lib.ntsm_dma_probe.restype = I
+        lib.ntsm_dma_probe.argtypes = [P, P, I, I, I, P, P]
         lib.ntsm_cuda_error_string.restype = ctypes.c_char_p
         lib.ntsm_cuda_error_string.argtypes = [I]
         _lib = lib

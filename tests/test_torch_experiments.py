@@ -1,0 +1,172 @@
+"""The experiment programs' plain versions (the P1/P2 gather forms and P3's
+XOR probe) against the scripts' own numpy oracles and, for the gathers,
+against the Pallas kernel bodies run through pl.pallas_call in interpret
+mode.  The scripts call pallas_call without interpret and run at import, so
+the bodies are restated here (scripts/exp_pallas_gather.py:10-13,39-41;
+scripts/exp_pallas_gather2.py:31-32,41-42,51-52,61-62).  P3's DMA body
+cannot run on the CPU.  Integer data: every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+
+from ntsm_tpu_torch.experiments import exp_dma_probe, exp_pallas_gather, exp_pallas_gather2
+from ntsm_tpu_torch.experiments import gather
+
+torch.set_num_threads(1)
+
+
+def _kernel_1d(tbl_ref, idx_ref, out_ref):
+    out_ref[:] = tbl_ref[:][idx_ref[:]]
+
+
+def _kernel_axis0(t, i, o):
+    o[:] = jnp.take_along_axis(t[:], i[:], axis=0)
+
+
+def _kernel_axis1(t, i, o):
+    o[:] = jnp.take_along_axis(t[:], i[:], axis=1)
+
+
+def _kernel_rows(t, i, o):
+    o[:] = t[:][i[:]]
+
+
+# case -> (form, Pallas body, table shape, index shape, index range, u32 table)
+CASES = {
+    "P1a_1d": ("gather_1d", _kernel_1d, (4096,), (64, 128), 4096, True),
+    "P1b_axis0": ("take_along_axis0", _kernel_axis0, (512, 128), (64, 128), 512, True),
+    "P2A_axis0": ("take_along_axis0", _kernel_axis0, (256, 128), (256, 128), 256, False),
+    "P2B_axis0_fewer_rows": ("take_along_axis0", _kernel_axis0, (256, 128), (32, 128), 256, False),
+    "P2C_axis1": ("take_along_axis1", _kernel_axis1, (256, 128), (256, 128), 128, False),
+    "P2D_rows": ("row_gather", _kernel_rows, (256, 128), (32,), 256, False),
+}
+
+
+def _oracle(form: str, tbl: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """The scripts' numpy checks (D has none there: numpy's row gather)."""
+    if form == "take_along_axis0":
+        return np.take_along_axis(tbl, idx, axis=0)
+    if form == "take_along_axis1":
+        return np.take_along_axis(tbl, idx, axis=1)
+    return tbl[idx]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gather_form_matches_oracle_and_pallas(case):
+    form, body, tshape, ishape, hi, u32 = CASES[case]
+    rng = np.random.default_rng(len(case))
+    if u32:
+        tbl = rng.integers(0, 2**32, size=tshape, dtype=np.uint32)
+    else:
+        tbl = rng.integers(0, 2**31, size=tshape, dtype=np.int32)
+    idx = rng.integers(0, hi, size=ishape, dtype=np.int32)
+    want = _oracle(form, tbl, idx)
+    out_shape = jax.ShapeDtypeStruct(want.shape, jnp.asarray(tbl).dtype)
+    pallas = np.asarray(pl.pallas_call(body, out_shape=out_shape, interpret=True)(
+        jnp.asarray(tbl), jnp.asarray(idx)))
+    np.testing.assert_array_equal(pallas, want)
+
+    wrapper, plain, _ = gather.FORMS[form]
+    t, i = gather.to_tensor(tbl, "cpu"), gather.to_tensor(idx, "cpu")
+    before = dict(gather.launches)
+    # the plain version on an int64 index is the form's one PyTorch call
+    for got in (plain(t, i), wrapper(t, i), plain(t, i.long())):
+        np.testing.assert_array_equal(got.numpy().view(tbl.dtype), want)
+    assert gather.launches == before  # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("form,tbl_shape,idx_shape,err", [
+    ("gather_1d", (8, 2), (4,), ValueError),
+    ("take_along_axis0", (8, 4), (3, 5), ValueError),
+    ("take_along_axis1", (8, 4), (7, 4), ValueError),
+    ("row_gather", (8, 4), (2, 2), ValueError),
+    ("row_gather", (8, 4), None, TypeError),
+])
+def test_gather_wrapper_checks(form, tbl_shape, idx_shape, err):
+    tbl = torch.zeros(tbl_shape, dtype=torch.int32)
+    idx = (torch.zeros(idx_shape, dtype=torch.int32) if idx_shape
+           else torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(err):
+        gather.FORMS[form][0](tbl, idx)
+
+
+def _script_oracle(fp: np.ndarray, idx_s: np.ndarray) -> np.ndarray:
+    """scripts/exp_dma_probe.py:125-128."""
+    exp = np.zeros(fp.shape[1], dtype=np.uint32)
+    for s in range(idx_s.shape[0]):
+        exp ^= np.bitwise_xor.reduce(fp[idx_s[s]], axis=0)
+    return exp
+
+
+@pytest.mark.parametrize("depth,rows,n_launch,n_idx", [
+    (4, 1024, 3, 4096), (16, 64, 5, 100), (64, 8, 1, 7), (1, 16, 2, 1), (16, 300, 7, 33),
+])
+def test_xor_probe_plain_matches_script_oracle(depth, rows, n_launch, n_idx):
+    rng = np.random.default_rng(depth * 1000 + rows)
+    fp = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32)
+    idx_s = rng.integers(0, rows, size=(n_launch, n_idx), dtype=np.int32)
+    want = _script_oracle(fp, idx_s)
+    fp_t, idx_t = torch.from_numpy(fp.view(np.int32)), torch.from_numpy(idx_s)
+    before = exp_dma_probe.launches
+    for got in (exp_dma_probe.xor_probe_plain(fp_t, idx_t),
+                exp_dma_probe.xor_probe(fp_t, idx_t, depth)):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert exp_dma_probe.launches == before
+
+
+@pytest.mark.parametrize("case", ["fp_width", "fp_dtype", "depth_0", "depth_65"])
+def test_xor_probe_checks(case):
+    fp = torch.zeros((16, 128), dtype=torch.int32)
+    idx = torch.zeros((2, 4), dtype=torch.int32)
+    depth = 4
+    if case == "fp_width":
+        fp = fp[:, :64].contiguous()
+    elif case == "fp_dtype":
+        fp = fp.long()
+    else:
+        depth = int(case.split("_")[1])
+    with pytest.raises(ValueError):
+        exp_dma_probe.xor_probe(fp, idx, depth)
+
+
+def test_script_shapes_and_draws():
+    """The programs draw the scripts' inputs: same shapes, seed 0, order."""
+    rng = np.random.default_rng(0)
+    tbl = rng.integers(0, 2**32, size=1 << 20, dtype=np.uint32)
+    (_, form, t, i), (_, form2, t2, _) = exp_pallas_gather.cases("cpu")
+    assert (form, form2) == ("gather_1d", "take_along_axis0")
+    np.testing.assert_array_equal(t.numpy().view(np.uint32), tbl)
+    assert tuple(i.shape) == (4096, 128) and tuple(t2.shape) == (8192, 128)
+    forms = [c[1] for c in exp_pallas_gather2.cases("cpu")]
+    assert forms == ["take_along_axis0", "take_along_axis0", "take_along_axis1", "row_gather"]
+    fp, idx_s = exp_dma_probe.inputs("cpu", n_launch=2)
+    assert tuple(fp.shape) == (65536, 128) and tuple(idx_s.shape) == (2, 4096)
+
+
+@pytest.mark.parametrize("module", [exp_pallas_gather, exp_pallas_gather2, exp_dma_probe])
+def test_programs_run_on_cpu(module, monkeypatch, capsys):
+    """Each program's body on the CPU (plain versions, untimed): the gather
+    forms at the scripts' shapes, P3 on 2 launches of the script's 512."""
+    cpu = torch.device("cpu")
+    if module is exp_dma_probe:
+        monkeypatch.setattr(exp_dma_probe, "SCAN", 2)
+        rows = exp_dma_probe.run(cpu)["depths"]
+    else:
+        rows = gather.run_forms(module.cases(cpu))
+    out = capsys.readouterr().out
+    assert "correct" in out and "False" not in out
+    assert rows and all(r["correct"] for r in rows)
+    assert "ms" not in rows[0]  # no device time on the CPU
+
+
+def test_programs_without_a_card_exit_1(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for module in (exp_pallas_gather, exp_pallas_gather2, exp_dma_probe):
+        assert module.main() == 1
+    assert "no CUDA device" in capsys.readouterr().err

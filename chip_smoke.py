@@ -24,9 +24,11 @@ result; any failure raises and ends the run with a non-zero exit:
   4. byte parity with the count fixtures in tests/fixtures
   5. the pair-statistics kernel against its plain version at 96,287 sites:
      a 256-row block of a 1,024-sample cohort (diagonal and off-diagonal
-     tiles) and the ragged last block, -c -1 and 1; integers bit-exact,
-     joint and ss within 1e-12 relative, and bit-equal to the exact
-     engine's on a subset; CUDA-event times
+     tiles), the ragged last block, and the first full-size row block of
+     the N = 3202 cohort (its plain version on 16 of its rows), -c -1 and
+     1; integers bit-exact, joint and ss within 1e-12 relative, and
+     bit-equal to the exact engine's on a subset; the micro-tile launched;
+     device times
   6. the eval -a path: ``ntsm_tpu_torch.cli.main(["eval", "-a", ...])`` on
      320 count files of 96,287 sites (default engine: the card's), against
      ``--engine exact`` on the same files: every non-score column
@@ -556,51 +558,82 @@ def cohort_data(mx: np.ndarray, opts):
 
 
 def check_pair_stats(device, mx: np.ndarray, card: str) -> dict:
+    """Phase 5: the pair-statistics kernel on two views of the phase-5
+    cohort, -c -1 and 1: the first 1,024 samples (rows [700, 956), phase
+    5's proxy for a small cohort's one block, and the ragged tail [956,
+    1024)), and the full N = 3202 cohort's first row block of
+    eval/rect.py:row_blocks (the block phase 7 runs).  The plain version
+    runs on each whole block, except the full-size one at -c -1: there on
+    two of its row tiles (the first and a middle one) and the ragged last,
+    which hold every register slot of the launched micro-tile (the whole
+    block's plain run takes ~45 s)."""
     import torch
 
     from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.eval.rect import BLOCK_PAIRS, row_blocks
 
-    n = 1024
-    ab = torch.from_numpy(np.ascontiguousarray(mx[:n])).to(device)
+    ab = torch.from_numpy(np.ascontiguousarray(mx)).to(device)
     a, b = ab[:, :, 0].contiguous(), ab[:, :, 1].contiguous()
     del ab
+    n_all = a.shape[0]
+    full = next(row_blocks(n_all, BLOCK_PAIRS))
+    n_sms = pair_kernel.sm_count(device)
     res, err = {}, 0.0
     for mc in (-1, 1):
-        s = pair_kernel.s_single_plane(a, b, mc)
-        for r0, r1 in ((700, 956), (956, n)):
-            ik, fk = pair_kernel.pair_stats(a, b, s, r0, r1, mc, N_SITES)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            ip, fp = pair_kernel.pair_stats_plain(a, b, s, r0, r1, mc, N_SITES)
-            end.record()
-            torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
-            check(torch.equal(ik, ip), f"pair_stats -c {mc} rows [{r0},{r1}): tallies differ from plain")
-            rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
+        s_all = pair_kernel.s_single_plane(a, b, mc)
+        for n, (r0, r1) in ((1024, (700, 956)), (1024, (956, 1024)), (n_all, full)):
+            an, bn, sn = a[:n], b[:n], s_all[:n]
+            ik, fk = pair_kernel.pair_stats(an, bn, sn, r0, r1, mc, N_SITES)
+            P = ik.shape[1]
+            micro = pair_kernel.MICRO_TILES[pair_kernel.micro_tile(P, n_sms)]
+            subs = [(r0, r1)]
+            if n == n_all and mc == -1:
+                ti = pair_kernel.TILE * micro[0]  # rows a tile: thread row ty, slot k
+                mid = r0 + ti * ((r1 - r0) // ti // 2)
+                last = r0 + ti * ((r1 - r0 - 1) // ti)
+                subs = [(r0, r0 + ti), (mid, mid + ti), (last, r1)]
+            plain_ms, rel = 0.0, 0.0
+            for q0, q1 in subs:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                ip, fp = pair_kernel.pair_stats_plain(an, bn, sn, q0, q1, mc, N_SITES)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms += start.elapsed_time(end)
+                p0 = pair_kernel.n_block_pairs(n, r0, q0)
+                sl = slice(p0, p0 + ip.shape[1])
+                check(torch.equal(ik[:, sl], ip),
+                      f"pair_stats -c {mc} rows [{q0},{q1}) of [{r0},{r1}): tallies differ from plain")
+                rel = max(rel, float(((fk[:, sl] - fp).abs() / fp.abs().clamp(min=1.0)).max()))
+                err = max(err, float((fk[:, sl] - fp).abs().max()))
             check(rel <= 1e-12, f"pair_stats -c {mc} rows [{r0},{r1}): f64 relative error {rel:.3g}")
-            err = max(err, float((fk - fp).abs().max()))
-            # the per-site step moved to pair_site.cuh: joint and ss stay the
-            # exact engine's bit for bit (rows r0 and r0 + 1 against all j)
+            # joint and ss bit-equal to the exact engine's (rows r0 and r0 + 1
+            # against all j)
             iu, ju = pair_rows(n, r0, min(r0 + 2, r1))
-            want = exact_sums(a[r0:, :N_SITES].cpu().numpy(), b[r0:, :N_SITES].cpu().numpy(),
-                              s[r0:, :N_SITES].cpu().numpy(), mc, iu - r0, ju - r0)
+            want = exact_sums(an[r0:, :N_SITES].cpu().numpy(), bn[r0:, :N_SITES].cpu().numpy(),
+                              sn[r0:, :N_SITES].cpu().numpy(), mc, iu - r0, ju - r0)
             check(np.array_equal(fk[:, : iu.size].cpu().numpy(), want),
                   f"pair_stats -c {mc} rows [{r0},{r1}): joint/ss not bit-equal to the exact engine")
-            ms = device_ms(lambda: pair_kernel.pair_stats(a, b, s, r0, r1, mc, N_SITES), iters=5)
-            P = ik.shape[1]
+            ms = device_ms(lambda: pair_kernel.pair_stats(an, bn, sn, r0, r1, mc, N_SITES),
+                           iters=5 if n == 1024 else 3)
             # bytes: rows r0.. of A, B, S read once, 36 B of results a pair;
             # operations: the f64 ones of each valid pair-site
             n_bytes = (n - r0) * N_SITES * 16 + P * 36
-            bd = bound(n_bytes, float(ik[0].sum()) * PAIR_SITE_F64_OPS, F64_OPS_PER_S)
+            bd = bound(n_bytes, float(ik[0].double().sum()) * PAIR_SITE_F64_OPS, F64_OPS_PER_S)
             print(f"phase 5: pair_stats -c {mc} rows [{r0},{r1}) of {n} x {N_SITES} sites "
-                  f"({P} pairs): tallies bit-exact, joint/ss within {rel:.3g} relative of plain "
-                  f"and bit-equal to the exact engine on {iu.size} pairs; "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bd['bound_ms']:.3f} ms "
-                  f"({bd['bound_by']}; {P * N_SITES / ms / 1e6:.1f} Gpair-site/s) [{card}]",
-                  flush=True)
+                  f"({P} pairs, micro-tile {micro[0]}x{micro[1]}): tallies bit-exact and "
+                  f"joint/ss within {rel:.3g} relative of plain on {len(subs)} row range(s), "
+                  f"joint/ss bit-equal to the exact engine on {iu.size} pairs; kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.1f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}; "
+                  f"{P * N_SITES / ms / 1e6:.1f} Gpair-site/s) [{card}]", flush=True)
             if mc == 1 and r0 == 700:
-                res = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bd)
-        del s
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bd)
+            elif mc == 1 and n == n_all:
+                res.update(full_block_rows=[r0, r1], full_block_ms=ms,
+                           full_block_plain_ms=plain_ms,
+                           full_block_bound_ms=bd["bound_ms"],
+                           full_block_gpair_sites_per_s=P * N_SITES / ms / 1e6)
+        del s_all
     return dict(max_abs_err=err, **res)
 
 

@@ -132,6 +132,11 @@ def run(argv) -> int:
             print(f"ntsm count: {flag} is not yet ported to ntsm_tpu_torch",
                   file=sys.stderr)
             return 1
+    # NTSM_DISTRIBUTED (non-empty) means --distributed, as in ntsm_tpu's CLI
+    if os.environ.get("NTSM_DISTRIBUTED"):
+        print("ntsm count: --distributed (NTSM_DISTRIBUTED) is not yet ported to "
+              "ntsm_tpu_torch", file=sys.stderr)
+        return 1
 
     die = False
     if opts.k > 32:

@@ -155,6 +155,11 @@ def run(argv) -> int:
             print("ntsm eval: --distributed is not yet ported to ntsm_tpu_torch",
                   file=sys.stderr)
             return 1
+    # NTSM_DISTRIBUTED (non-empty) means --distributed, as in ntsm_tpu's CLI
+    if os.environ.get("NTSM_DISTRIBUTED"):
+        print("ntsm eval: --distributed (NTSM_DISTRIBUTED) is not yet ported to "
+              "ntsm_tpu_torch", file=sys.stderr)
+        return 1
 
     die = False
     for f in files:

@@ -116,7 +116,7 @@ def load():
         lib.ntsm_probe_count.restype = I
         lib.ntsm_probe_count.argtypes = [P, P, L, P, P, P, L, I, P, P, P]
         lib.ntsm_pair_stats.restype = I
-        lib.ntsm_pair_stats.argtypes = [P, P, P, L, I, L, I, I, L, P, P, L, P]
+        lib.ntsm_pair_stats.argtypes = [P, P, P, L, I, L, I, I, L, P, I, I, P, P, L, P]
         lib.ntsm_pair_block_stats.restype = I
         lib.ntsm_pair_block_stats.argtypes = [P, P, P, L, L, P, P, L, L, P, P, P]
         lib.ntsm_gather_1d.restype = I
@@ -129,6 +129,8 @@ def load():
         lib.ntsm_row_gather.argtypes = [P, I, P, I, P, P]
         lib.ntsm_dma_probe.restype = I
         lib.ntsm_dma_probe.argtypes = [P, P, I, I, I, P, P]
+        lib.ntsm_rcp_check.restype = I
+        lib.ntsm_rcp_check.argtypes = [P, P, P]
         lib.ntsm_cuda_error_string.restype = ctypes.c_char_p
         lib.ntsm_cuda_error_string.argtypes = [I]
         _lib = lib

@@ -32,14 +32,16 @@
 // thread runs the per-site step over the chunk for its own pair.
 //
 // What bounds it on the H100: f64 arithmetic.  A valid pair-site costs
-// eight f64 operations, two of them IEEE divisions (a division is a
-// software sequence of several f64 operations).  The bytes are at most
-// 16 B for each sample-site touched (A, B, S), read once: 4.9 GB for the
-// whole N = 3202 x 96,287 planes, 1.5 ms at the H100 SXM data sheet's
+// the shared step's one reciprocal, two corrected quotients and eight adds
+// and products (pair_site.cuh:ntsm_pair_sums), here after four int->f64
+// conversions, since each staged value serves one pair.  The bytes are at
+// most 16 B for each sample-site touched (A, B, S), read once: 4.9 GB for
+// the whole N = 3202 x 96,287 planes, 1.5 ms at the H100 SXM data sheet's
 // 3.35 TB/s, below the arithmetic's least time (at its 34 TFLOP/s) for
-// any candidate list of more than about 70,000 pairs.  Later work:
-// several pairs a thread, keeping the ascending order, and one staged
-// copy of a repeated i row.
+// any candidate list of more than about 70,000 pairs.  Later work: the
+// all-vs-all kernel's staging (f64 counts and bit planes converted once a
+// sample-site), several pairs a thread, keeping the ascending order, and
+// one staged copy of a repeated i row.
 
 #include <cstdint>
 

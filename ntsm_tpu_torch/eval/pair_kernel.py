@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ntsm_tpu_torch import csrc
@@ -42,6 +43,14 @@ launches = 0
 launches_block = 0
 
 N_INTS = 5  # n, ibs0, shared_hets, hets1, hets2
+# csrc/pair_stats.cu: a block of TILE x TILE threads, each holding RI x RJ
+# pairs; index m of MICRO_TILES is the kernel's `micro` argument
+TILE = 16
+MICRO_TILES = ((1, 1), (2, 2))
+# threads an SM a block's launch should give (micro_tile): on the H100 (132
+# SMs) 2x2 then runs from 4 * 132 * 1024 = 540,672 pairs a block, and 1x1 was
+# the faster at 302,736 pairs, 2x2 at 933,661 (experiments/exp_pair_stats.py)
+THREADS_PER_SM = 1024
 # elements of a [T, N, C] broadcast chunk in the plain version: bounds its
 # temporaries (a few f64 planes of this size) on either device
 PLAIN_CHUNK = {"cpu": 1 << 22, "cuda": 1 << 25}
@@ -142,6 +151,39 @@ def _check(a, b, s, r0: int, r1: int, n_sites: int) -> None:
         raise ValueError(f"{N} samples exceed the kernel's int32 indices")
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def micro_tile(n_pairs: int, n_sms: int) -> int:
+    """The kernel instance for a block of n_pairs pairs on a card of n_sms
+    SMs: an index into MICRO_TILES, the largest micro-tile that still gives
+    THREADS_PER_SM threads an SM (one a micro-tile), so that a small block
+    keeps every SM busy and a large one reuses each staged value most."""
+    for m in range(len(MICRO_TILES) - 1, 0, -1):
+        ri, rj = MICRO_TILES[m]
+        if n_pairs >= n_sms * THREADS_PER_SM * ri * rj:
+            return m
+    return 0
+
+
+def live_tiles(n_samples: int, r0: int, r1: int, ti: int, tj: int) -> np.ndarray:
+    """[T, 2] int32 (row tile, column tile) of the ti x tj tiles of pairs
+    (rows r0 + ti * t.., columns tj * u..) of the row block [r0, r1) that
+    hold a pair j > i: the kernel's grid, row tiles in order.  Row tile t
+    (first row i0) is live from column tile (i0 + 1) // tj on, the first
+    whose last column exceeds i0, if i0 < n_samples - 1."""
+    i0 = r0 + ti * np.arange(-(-(r1 - r0) // ti), dtype=np.int64)
+    i0 = i0[i0 < n_samples - 1]
+    first = (i0 + 1) // tj
+    count = -(-n_samples // tj) - first
+    rows = np.repeat((i0 - r0) // ti, count)
+    starts = np.cumsum(count) - count
+    cols = np.repeat(first, count) + np.arange(rows.size) - np.repeat(starts, count)
+    return np.stack([rows, cols], axis=1).astype(np.int32)
+
+
 def pair_stats(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
     """(ints [5, P] int32, sums [2, P] float64) for the pairs of rows
     [r0, r1): a, b are [N, L] int32 allele count planes, s is
@@ -159,9 +201,15 @@ def pair_stats(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
     sums = torch.empty((2, P), dtype=torch.float64, device=a.device)
     if P == 0:
         return ints, sums
+    m = micro_tile(P, sm_count(a.device))
+    ri, rj = MICRO_TILES[m]
+    # pinned, then an asynchronous copy: the upload never waits for the card
+    tiles = torch.from_numpy(live_tiles(N, r0, r1, TILE * ri, TILE * rj)).pin_memory()
+    tiles = tiles.to(a.device, non_blocking=True)
     rc = lib.ntsm_pair_stats(
         ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
         ctypes.c_void_p(s.data_ptr()), L, N, n_sites, r0, r1, int(mc),
+        ctypes.c_void_p(tiles.data_ptr()), tiles.shape[0], m,
         ctypes.c_void_p(ints.data_ptr()), ctypes.c_void_p(sums.data_ptr()), P,
         csrc.stream_ptr(a.device),
     )

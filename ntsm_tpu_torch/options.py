@@ -65,9 +65,10 @@ class Options:
     debug: str = ""
 
     # ---- extensions (not in the reference) ----
-    # eval engine: "auto" picks exact for small sample counts and the device
-    # engine for large cohorts; "exact" forces the float64 host engine;
-    # "cuda" forces the device engine (eval/rect.py)
+    # eval engine: "auto" runs the device engine wherever pairs are scored
+    # (-a, the default all-vs-all, -p) at any cohort size, and the exact host
+    # engine for single-sample QC, --only_merge and -p with -b; "exact" forces the
+    # float64 host engine; "cuda" forces the device engine (eval/rect.py)
     engine: str = "auto"
     # read batch geometry for the device counting pipeline
     batch_reads: int = 32768

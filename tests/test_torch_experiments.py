@@ -14,7 +14,8 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
-from ntsm_tpu_torch.experiments import exp_dma_probe, exp_pallas_gather, exp_pallas_gather2
+from ntsm_tpu_torch.experiments import exp_dma_probe, exp_pair_stats, exp_pallas_gather
+from ntsm_tpu_torch.experiments import exp_pallas_gather2
 from ntsm_tpu_torch.experiments import gather
 
 torch.set_num_threads(1)
@@ -170,3 +171,16 @@ def test_programs_without_a_card_exit_1(capsys):
     for module in (exp_pallas_gather, exp_pallas_gather2, exp_dma_probe):
         assert module.main() == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_pair_stats_program_cohort_and_no_card(capsys):
+    """exp_pair_stats' cohort on the CPU at a small size: int32 counts
+    around the generator's coverage; the program itself needs a card."""
+    a, b = exp_pair_stats.cohort(torch.device("cpu"), n=6, n_sites=500)
+    assert a.shape == b.shape == (6, 500) and a.dtype == b.dtype == torch.int32
+    assert int(a.min()) >= 0 and int(b.min()) >= 0
+    assert 20 < float((a + b).double().mean()) < 40
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert exp_pair_stats.main([]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err

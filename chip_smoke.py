@@ -40,9 +40,12 @@ result; any failure raises and ends the run with a non-zero exit:
   8. byte parity with the eval fixtures on the card, -p, its single-sample
      PC columns and -b included
   9. the candidate-pair kernel (-p) against its plain version on the
-     phase-5 cohort: a grouped list of 50,037 pairs, -c 1 and -1; integers
-     bit-exact, joint and ss within 1e-12 relative, and bit-equal to the
-     exact engine's on 2,000 pairs; CUDA-event times
+     phase-5 cohort: a grouped list of 50,037 pairs, -c 1 and -1, planned
+     on the host (timed: tiles, sparse pairs, repeats, density); every
+     pair's integers bit-exact, joint and ss within 1e-12 relative, and
+     bit-equal to the exact engine's on 2,000 pairs of both instances; a
+     repeated pair equal to its first listing; device times of the list
+     and of each instance alone
  10. the eval -p path: ``ntsm_tpu_torch.cli.main(["eval", "-a", "-p", ...])``
      on 320 count files of a 16-cluster cohort with 2% dirty samples and a
      96,287-site x 20-PC rotation, against ``--engine exact``: the same
@@ -50,7 +53,10 @@ result; any failure raises and ends the run with a non-zero exit:
      byte-identical, scores within 1e-9 max(1, |score|); the candidate-pair
      kernel launched and the all-vs-all one not
  11. the -p scorer at N = 3202 of the same design, in memory; its stage
-     times and its first rows against the exact engine
+     times (the plans' among them) and its first rows against the exact
+     engine; then the candidate-pair kernel alone on its candidate list as
+     phase 9 runs it, the plain version on a sample that reaches every
+     thread of both instances
  12. K2 (the window hash from unpacked codes) against its plain version at
      B = 32768, L = 256, k = 19, 31 and 32: random codes with 2% Ns and
      ragged lengths in [0, L]; bit-exact, with CUDA-event times per batch
@@ -83,10 +89,10 @@ peak rate of their type: 34 TFLOP/s for f64 outside the tensor cores
 float32 rate; a 64-bit integer operation counts as two).  Times are
 device times (``ntsm_tpu_torch/utils/timing.py:device_ms``: each call
 queued behind a device-side spin, between two events), except for the
-calls that wait for the device inside, K4's plain version and the
-candidate-pair kernel's wrapper (its index check), timed with events
-around each call (``event_ms``), and the pair kernels' plain versions,
-timed once.
+calls that wait for the device inside, K4's plain version, timed with
+events around each call (``event_ms``), and the pair kernels' plain
+versions, timed once.  The candidate-pair kernel is timed with its plan
+made beforehand (the plan is host work, timed apart).
 """
 
 from __future__ import annotations
@@ -334,7 +340,7 @@ def reset_launches() -> None:
     from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
-    pair_kernel.launches = pair_kernel.launches_block = 0
+    pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
 
@@ -363,7 +369,8 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches}
-    check(pair_kernel.launches == pair_kernel.launches_block == 0,
+    check(pair_kernel.launches == pair_kernel.launches_block
+          == pair_kernel.launches_block_sparse == 0,
           "ntsm count launched an eval kernel")
     t0 = time.monotonic()
     want = cli_count(["--engine", "golden", "-s", sites, fq])
@@ -693,7 +700,8 @@ def eval_main_path(mx: np.ndarray, work: str, card: str) -> int:
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = pair_kernel.launches
-    check(hash_kernel.launches == kernel_v3.launches == pair_kernel.launches_block == 0,
+    check(hash_kernel.launches == kernel_v3.launches == pair_kernel.launches_block
+          == pair_kernel.launches_block_sparse == 0,
           "ntsm eval -a launched a count kernel or pair_block_stats")
     check(launches > 0, "eval -a did not launch pair_stats (the default engine was not the card's)")
     t0 = time.monotonic()
@@ -794,11 +802,12 @@ def eval_fixtures() -> None:
         with open("eval_single.tsv") as fh:
             check(cli_eval(["--engine", "cuda", names[0]]) == fh.read(),
                   "eval_single.tsv differs on the card")
-        before = pair_kernel.launches_block
+        before = pair_kernel.launches_block + pair_kernel.launches_block_sparse
         with open("eval_pca.tsv") as fh:
             check(cli_eval(["--engine", "cuda", "-a", *pca, *names]) == fh.read(),
                   "eval_pca.tsv differs on the card")
-        check(pair_kernel.launches_block > before, "eval_pca.tsv: pair_block_stats not launched")
+        check(pair_kernel.launches_block + pair_kernel.launches_block_sparse > before,
+              "eval_pca.tsv: pair_block_stats not launched")
         with open("eval_single_pca.tsv") as fh:
             check(cli_eval(["--engine", "cuda", *pca, names[0]]) == fh.read(),
                   "eval_single_pca.tsv differs on the card")
@@ -829,55 +838,148 @@ def grouped_pairs(rng, n: int, n_pairs: int):
     return ii.astype(np.int32), jj.astype(np.int32)
 
 
-def check_pair_block_stats(device, mx: np.ndarray, card: str) -> dict:
+def instance_plans(plan):
+    """(tiles, sparse): copies of a -p plan that hold only the tile
+    instance's or only the sparse instance's share (no repeats), for their
+    times and bounds."""
+    import dataclasses
+
+    from ntsm_tpu_torch.eval.pair_kernel import TILE
+
+    z, none = np.zeros(0, np.int32), np.zeros((2, 0), np.int64)
+    tiles = dataclasses.replace(plan, irows=z.reshape(0, 1), islot=z, jrow=z, out=z, dup=none,
+                                _dev={})
+    sparse = dataclasses.replace(plan, rows=z.reshape(0, TILE), cols=z.reshape(0, TILE),
+                                 outs=z.reshape(0, TILE, TILE), dup=none, _dev={})
+    return tiles, sparse
+
+
+def slot_sample(plan, rng, per_slot: int = 4) -> tuple:
+    """Output indices of a sample of a plan's pairs that reaches every
+    thread of both instances: for each of a tile's TILE x TILE slots (one
+    a thread), up to `per_slot` tiles listing a pair there; the sparse
+    instance's first two blocks (every thread) and its last.  Returns
+    (tile sample, sparse sample, the number of slots some tile lists)."""
+    from ntsm_tpu_torch.eval.pair_kernel import SPARSE_PAIRS
+
+    outs = plan.outs.reshape(plan.n_tiles, -1)
+    tiled = [col[col >= 0][:per_slot] for col in outs[rng.permutation(plan.n_tiles)].T]
+    tiled = np.concatenate(tiled).astype(np.int64) if tiled else np.zeros(0, np.int64)
+    q = np.arange(plan.n_sparse)
+    last = (plan.n_sparse - 1) // SPARSE_PAIRS * SPARSE_PAIRS
+    sp = q[(q < 2 * SPARSE_PAIRS) | (q >= last)]
+    return tiled, plan.out[sp].astype(np.int64), int((outs >= 0).any(axis=0).sum())
+
+
+def check_pair_block_list(device, a, b, ii: np.ndarray, jj: np.ndarray, card: str,
+                          what: str, full: bool) -> dict:
+    """K5 on the candidate list (ii, jj) of the planes a, b, -c 1 and -1:
+    planned on the host (timed), then its pairs against the plain version
+    (all of them when `full`, else slot_sample's), integers bit-exact,
+    joint and ss within 1e-12 relative, and bit-equal to the exact engine's
+    on up to 2,000 of them; the whole list, each instance alone and the
+    plain version on each instance's pairs timed.  Returns the -c 1 numbers
+    of each instance (with the list's in the tile entry)."""
     import torch
 
     from ntsm_tpu_torch.eval import pair_kernel
 
-    n, n_pairs = 1024, 50_037  # 390 full blocks of 128 pairs and a ragged one
+    n = a.shape[0]
+    t0 = time.perf_counter()
+    plan = pair_kernel.plan_pair_blocks(ii, jj, n)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    tiles, sparse = instance_plans(plan)
+    idx_t = plan.outs[plan.outs >= 0].astype(np.int64)
+    idx_s = plan.out.astype(np.int64)
+    if full:
+        cmp_t, cmp_s, n_slots = idx_t, idx_s, None
+    else:
+        cmp_t, cmp_s, n_slots = slot_sample(plan, np.random.default_rng(12))
+        check(n_slots == plan.outs[0].size and plan.n_sparse >= pair_kernel.SPARSE_PAIRS,
+              f"{what}: the sample reaches {n_slots} tile slots and {plan.n_sparse} sparse "
+              "pairs, not every thread of both instances")
+    it, jt = torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device)
+    sub = np.concatenate([cmp_t[:1000], cmp_s[:1000]])
+    rows = np.unique(np.concatenate([ii[sub], jj[sub]]))
+    remap = np.full(n, -1, np.int64)
+    remap[rows] = np.arange(rows.size)
+    ri = torch.from_numpy(rows).to(device)
+    res = {}
+    for mc in (1, -1):
+        s = pair_kernel.s_single_plane(a, b, mc)
+        ik, fk = pair_kernel.pair_block_stats(a, b, s, it, jt, mc, N_SITES, plan=plan)
+        err, plain = 0.0, {}
+        for name, idx in (("tiles", cmp_t), ("sparse", cmp_s)):
+            if not idx.size:
+                plain[name] = None
+                continue
+            x = torch.from_numpy(idx).to(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ip, fp = pair_kernel.pair_block_stats_plain(a, b, s, it[x], jt[x], mc, N_SITES)
+            end.record()
+            torch.cuda.synchronize()
+            plain[name] = start.elapsed_time(end)
+            check(torch.equal(ik[:, x], ip), f"{what} -c {mc}: {name} tallies differ from plain")
+            rel = float(((fk[:, x] - fp).abs() / fp.abs().clamp(min=1.0)).max())
+            check(rel <= 1e-12, f"{what} -c {mc}: {name} f64 relative error {rel:.3g}")
+            err = max(err, float((fk[:, x] - fp).abs().max()))
+        if plan.dup.shape[1]:
+            d = torch.from_numpy(plan.dup).to(device)
+            check(torch.equal(ik[:, d[0]], ik[:, d[1]]) and torch.equal(fk[:, d[0]], fk[:, d[1]]),
+                  f"{what} -c {mc}: a repeated pair's results differ from its first listing")
+        want = exact_sums(a[ri].cpu().numpy(), b[ri].cpu().numpy(), s[ri].cpu().numpy(), mc,
+                          remap[ii[sub]], remap[jj[sub]])
+        check(np.array_equal(fk[:, torch.from_numpy(sub).to(device)].cpu().numpy(), want),
+              f"{what} -c {mc}: joint/ss not bit-equal to the exact engine")
+        run = lambda p: device_ms(  # noqa: E731
+            lambda: pair_kernel.pair_block_stats(a, b, s, it, jt, mc, N_SITES, plan=p), iters=5)
+        ms = {"list": run(plan), "tiles": run(tiles) if plan.n_tiles else None,
+              "sparse": run(sparse) if plan.n_sparse else None}
+        valid = ik[0].double()
+        bd = {}
+        for name, idx in (("tiles", idx_t), ("sparse", idx_s)):
+            # bytes: each distinct row of A, B, S read once, the pair list, 36
+            # B of results a pair; operations: the f64 ones of each valid
+            # pair-site
+            touched = np.unique(np.concatenate([ii[idx], jj[idx]])).size
+            n_ops = float(valid[torch.from_numpy(idx).to(device)].sum()) * PAIR_SITE_F64_OPS
+            bd[name] = bound(touched * N_SITES * 16 + idx.size * (8 + 36), n_ops, F64_OPS_PER_S)
+        fmt = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
+        print(f"{what}: pair_block_stats -c {mc}, {ii.size} pairs of {n} x {N_SITES} sites, "
+              f"plan {plan_ms:.1f} ms: {plan.n_tiles} tiles holding {idx_t.size} pairs (tile "
+              f"density {plan.tile_density():.4f}), {plan.n_sparse} sparse pairs, "
+              f"{plan.dup.shape[1]} repeats; density {plan.density():.4f}; tallies bit-exact "
+              f"and joint/ss within 1e-12 relative of plain on {cmp_t.size} + {cmp_s.size} "
+              f"pairs{'' if full else f' (every one of {n_slots} tile slots)'}, bit-equal to "
+              f"the exact engine on {sub.size}; kernel {ms['list']:.3f} ms "
+              f"({ii.size * N_SITES / ms['list'] / 1e6:.1f} Gpair-site/s): tiles "
+              f"{fmt(ms['tiles'])} ms (bound {bd['tiles']['bound_ms']:.3f}, plain "
+              f"{fmt(plain['tiles'])}), sparse {fmt(ms['sparse'])} ms (bound "
+              f"{bd['sparse']['bound_ms']:.3f}, plain {fmt(plain['sparse'])}) [{card}]",
+              flush=True)
+        if mc == 1:
+            res = {name: dict(ms=ms[name], plain_ms=plain[name], library_ms=None,
+                              max_abs_err=err, **bd[name]) for name in ("tiles", "sparse")}
+            res["tiles"].update(list_ms=ms["list"], plan_ms=plan_ms, density=plan.density(),
+                                tile_density=plan.tile_density(), tiles=plan.n_tiles,
+                                sparse_pairs=plan.n_sparse)
+        del s
+    return res
+
+
+def check_pair_block_stats(device, mx: np.ndarray, card: str) -> dict:
+    """Phase 9: K5 on 50,037 grouped candidate pairs of the phase-5
+    cohort's first 1,024 samples, every pair against the plain version."""
+    import torch
+
+    n, n_pairs = 1024, 50_037
     ab = torch.from_numpy(np.ascontiguousarray(mx[:n])).to(device)
     a, b = ab[:, :, 0].contiguous(), ab[:, :, 1].contiguous()
     del ab
     ii, jj = grouped_pairs(np.random.default_rng(9), n, n_pairs)
-    it, jt = torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device)
-    sub = slice(0, 2000)
-    rows = np.unique(np.concatenate([ii[sub], jj[sub]]))
-    remap = np.full(n, -1, np.int64)
-    remap[rows] = np.arange(rows.size)
-    res, err = {}, 0.0
-    for mc in (1, -1):
-        s = pair_kernel.s_single_plane(a, b, mc)
-        ik, fk = pair_kernel.pair_block_stats(a, b, s, it, jt, mc, N_SITES)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        ip, fp = pair_kernel.pair_block_stats_plain(a, b, s, it, jt, mc, N_SITES)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        check(torch.equal(ik, ip), f"pair_block_stats -c {mc}: tallies differ from plain")
-        rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
-        check(rel <= 1e-12, f"pair_block_stats -c {mc}: f64 relative error {rel:.3g}")
-        err = max(err, float((fk - fp).abs().max()))
-        ri = torch.from_numpy(rows).to(device)
-        want = exact_sums(a[ri].cpu().numpy(), b[ri].cpu().numpy(), s[ri].cpu().numpy(), mc,
-                          remap[ii[sub]], remap[jj[sub]])
-        check(np.array_equal(fk[:, sub].cpu().numpy(), want),
-              f"pair_block_stats -c {mc}: joint/ss not bit-equal to the exact engine")
-        ms = event_ms(lambda: pair_kernel.pair_block_stats(a, b, s, it, jt, mc, N_SITES), iters=5)
-        # bytes: each distinct row of A, B, S read once, the pair list, 36 B
-        # of results a pair; operations: the f64 ones of each valid pair-site
-        touched = np.unique(np.concatenate([ii, jj])).size
-        n_bytes = touched * N_SITES * 16 + n_pairs * (8 + 36)
-        bd = bound(n_bytes, float(ik[0].sum()) * PAIR_SITE_F64_OPS, F64_OPS_PER_S)
-        print(f"phase 9: pair_block_stats -c {mc}, {n_pairs} grouped pairs of {n} x {N_SITES} "
-              f"sites: tallies bit-exact, joint/ss within {rel:.3g} relative of plain and "
-              f"bit-equal to the exact engine on {want.shape[1]} pairs; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms, bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}); "
-              f"{n_pairs * N_SITES / ms / 1e6:.1f} Gpair-site/s [{card}]", flush=True)
-        if mc == 1:
-            res = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bd)
-        del s
-    return dict(max_abs_err=err, **res)
+    return check_pair_block_list(device, a, b, ii, jj, card, "phase 9", full=True)
 
 
 def spread_rotation() -> np.ndarray:
@@ -895,7 +997,8 @@ def radius_tiers(data, opts) -> dict:
             "exhaustive": int((radii >= DBL_MAX).sum())}
 
 
-def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> int:
+def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
+    """Phase 10; returns the launches of K5's (tile, sparse) instances."""
     import multiprocessing
 
     import torch
@@ -916,6 +1019,20 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> int:
           f"files of a {N_CLUSTERS}-cluster cohort in {time.monotonic() - t0:.1f} s; "
           f"radius tiers {tiers}", flush=True)
     check(tiers["exhaustive"] > 0 and tiers["small"] > 0, f"radius tiers {tiers}")
+    # the candidate-pair kernel's plan of the list the CLI will score
+    from ntsm_tpu_torch.eval.pca import pca_candidate_arrays, project_pcs, search_radii
+
+    popts = Options(all=True, engine="cuda", pca=rot, norm=norm)
+    pdata = cohort_data(mx, popts)
+    pi, pj = pca_candidate_arrays(project_pcs(pdata, popts), search_radii(pdata, popts),
+                                  popts.dim)
+    t0 = time.perf_counter()
+    plan = pair_kernel.plan_pair_blocks(pi, pj, N_EVAL_FILES)
+    print(f"phase 10: plan of its {pi.size} candidates in {(time.perf_counter() - t0) * 1e3:.1f} "
+          f"ms: {plan.n_tiles} tiles holding {plan.n_tiled} pairs (tile density "
+          f"{plan.tile_density():.4f}), {plan.n_sparse} sparse pairs; density "
+          f"{plan.density():.4f}", flush=True)
+    del pdata
 
     n_pairs = N_EVAL_FILES * (N_EVAL_FILES - 1) // 2
     args = ["-a", "-p", rot, "-n", norm, *paths]
@@ -924,9 +1041,9 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> int:
     got = cli_eval(args)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = pair_kernel.launches_block
-    check(launches > 0, "eval -p did not launch pair_block_stats (the default engine was not "
-          "the card's)")
+    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse)
+    check(sum(launches) > 0, "eval -p did not launch pair_block_stats (the default engine was "
+          "not the card's)")
     check(pair_kernel.launches == 0, "eval -p launched pair_stats")
     t0 = time.monotonic()
     want = cli_eval(["--engine", "exact", *args])
@@ -940,14 +1057,19 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> int:
     print(f"phase 10: ntsm eval -a -p on the card, {N_EVAL_FILES} files: {rows} candidate rows = "
           f"{rows / n_pairs:.4f} of {n_pairs} pairs, the same pairs and order as --engine exact "
           f"({exact_sec:.1f} s) with every non-score column byte-identical, {differ} score "
-          f"strings differ; pair_block_stats launches {launches}; {sec:.2f} s end to end (CLI "
+          f"strings differ; pair_block_stats launches {launches} (tiles, sparse); {sec:.2f} s "
+          f"end to end (CLI "
           f"incl. load and projection), {rows / sec:.0f} candidate pairs/s [{card}]", flush=True)
     return launches
 
 
-def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> None:
+def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple:
+    """Phase 11; returns the launches of K5's (tile, sparse) instances in
+    the scorer's run, then runs K5 alone on its candidate list and returns
+    check_pair_block_list's numbers."""
     import torch
 
+    from ntsm_tpu_torch.eval import pair_kernel
     from ntsm_tpu_torch.eval import exact
     from ntsm_tpu_torch.eval.driver import run_eval
     from ntsm_tpu_torch.eval.pca import (
@@ -963,11 +1085,15 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> None:
     n = data.n_samples
     tiers = radius_tiers(data, opts)
     sink = ByteSink()
+    reset_launches()
     t0 = time.monotonic()
     with contextlib.redirect_stderr(io.StringIO()):
         tm = run_eval(data, opts, sink, device=device)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
+    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse)
+    check(sum(launches) > 0 and pair_kernel.launches == 0,
+          f"N={n} -p: pair_block_stats launches {launches}, pair_stats {pair_kernel.launches}")
     P = tm["pairs"]
     check(sink.n_lines == P + 1, f"N={n} -p: {sink.n_lines} lines for {P} candidates")
     # the first rows against the exact engine on the same candidates
@@ -995,10 +1121,18 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> None:
           f"and prepare {prep:.1f} s); radius tiers {tiers}; {P} candidates = "
           f"{P / n_pairs:.4f} of {n_pairs} pairs, {sink.n_bytes / 1e9:.3f} GB of rows in "
           f"{sec:.2f} s = {P / sec:.0f} candidate pairs/s; project {tm['project']:.2f} s, "
-          f"candidates {tm['candidates']:.2f} s, upload + s_single {tm['upload']:.2f} s, kernel + "
-          f"fetch {tm['score']:.2f} s, finalize {tm['finalize']:.2f} s, emit {tm['emit']:.2f} s; "
-          f"first {k} rows match the exact engine ({differ} score strings differ) [{card}]",
-          flush=True)
+          f"candidates {tm['candidates']:.2f} s, upload + s_single {tm['upload']:.2f} s, tiles "
+          f"(the plans) {tm['tiles']:.3f} s, kernel + fetch {tm['score']:.3f} s, finalize "
+          f"{tm['finalize']:.2f} s, emit {tm['emit']:.2f} s; pair_block_stats launches "
+          f"{launches} (tiles, sparse); first {k} rows match the exact engine ({differ} score "
+          f"strings differ) [{card}]", flush=True)
+    del sink, data, sub
+    ab = torch.from_numpy(mx).to(device)
+    a, b = ab[:, :, 0].contiguous(), ab[:, :, 1].contiguous()
+    del ab, mx
+    alone = check_pair_block_list(device, a, b, ii.astype(np.int32), jj.astype(np.int32), card,
+                                  f"phase 11, K5 alone on the N={n} list", full=False)
+    return launches, alone
 
 
 # ---------------------------------------------------------------- phases 12-13
@@ -1056,7 +1190,8 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> int:
     launches = hash_kernel.launches_codes
     check(hash_kernel.launches == kernel_v3.launches == 0,
           "the v1 engine launched window_hash or probe_count")
-    check(pair_kernel.launches == pair_kernel.launches_block == 0,
+    check(pair_kernel.launches == pair_kernel.launches_block
+          == pair_kernel.launches_block_sparse == 0,
           "the v1 engine launched an eval kernel")
     mx, sm = res.site_max_sum(table)
     got = format_counts(table.site_ids, mx, sm, table.distinct, res.total_kmers, K)
@@ -1205,8 +1340,16 @@ def main() -> int:
         del cohort
         eval_fixtures()
         rotation = spread_rotation()
-        launches["pair_block_stats"] = eval_pca_path(device, work, rotation, card)
-        eval_pca_cohort(device, rotation, work, card)
+        in_cli = eval_pca_path(device, work, rotation, card)
+        in_scorer, alone = eval_pca_cohort(device, rotation, work, card)
+        # the -p path's launches: phase 10's CLI run and phase 11's scorer run
+        launches["pair_block_stats"], launches["pair_block_stats_sparse"] = (
+            x + y for x, y in zip(in_cli, in_scorer))
+        for key, val in alone["tiles"].items():
+            if key in ("ms", "list_ms", "plan_ms", "density", "tile_density", "tiles",
+                       "sparse_pairs"):
+                block["tiles"][f"n3202_{key}"] = val
+        block["sparse"]["n3202_ms"] = alone["sparse"]["ms"]
         hashes_codes = {k: check_window_hash_codes(device, rng, k, card) for k in (19, 31, 32)}
         launches["window_hash_codes"] = v1_path(device, sites, fq, golden_text, card)
         gathers = {name: gather_program(device, name, card) for name in ("p1", "p2")}
@@ -1230,7 +1373,11 @@ def main() -> int:
         dict(name="pair_block_stats", route="cuda",
              source="ntsm_tpu_torch/csrc/pair_block_stats.cu",
              replaces="ntsm_tpu/eval/kernels.py:317",
-             launches=launches["pair_block_stats"], **block),
+             launches=launches["pair_block_stats"], **block["tiles"]),
+        dict(name="pair_block_stats_sparse", route="cuda",
+             source="ntsm_tpu_torch/csrc/pair_block_stats.cu",
+             replaces="ntsm_tpu/eval/kernels.py:317",
+             launches=launches["pair_block_stats_sparse"], **block["sparse"]),
         dict(name="window_hash_codes", route="cuda",
              source="ntsm_tpu_torch/csrc/window_hash.cu",
              replaces="ntsm_tpu/count/pallas_kernel.py:148",

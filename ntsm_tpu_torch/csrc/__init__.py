@@ -117,8 +117,10 @@ def load():
         lib.ntsm_probe_count.argtypes = [P, P, L, P, P, P, L, I, P, P, P]
         lib.ntsm_pair_stats.restype = I
         lib.ntsm_pair_stats.argtypes = [P, P, P, L, I, L, I, I, L, P, I, I, P, P, L, P]
-        lib.ntsm_pair_block_stats.restype = I
-        lib.ntsm_pair_block_stats.argtypes = [P, P, P, L, L, P, P, L, L, P, P, P]
+        lib.ntsm_pair_block_tiles.restype = I
+        lib.ntsm_pair_block_tiles.argtypes = [P, P, P, L, L, L, P, P, P, L, P, P, L, P]
+        lib.ntsm_pair_block_sparse.restype = I
+        lib.ntsm_pair_block_sparse.argtypes = [P, P, P, L, L, L, P, I, P, P, P, L, P, P, L, P]
         lib.ntsm_gather_1d.restype = I
         lib.ntsm_gather_1d.argtypes = [P, P, L, P, P]
         lib.ntsm_take_axis0.restype = I

@@ -33,11 +33,13 @@
 // branch to a slow path is left in the pair loop.  Device memory is not the
 // limit: each staged value serves TI or TJ pairs.
 //
-// Design (wrapper: eval/pair_kernel.py:pair_stats):
+// Design (wrapper: eval/pair_kernel.py:pair_stats; the tile machinery is
+// pair_site.cuh's, shared with pair_block_stats.cu's tile instance):
 // - a block of 16 x 16 threads owns a TI x TJ tile of pairs (TI = 16 RI,
-//   TJ = 16 RJ); thread (tx, ty) holds the RI x RJ pairs (i0 + ty + 16k,
-//   j0 + tx + 16l) in registers, so a staged value feeds RJ (or RI) pairs
-//   and RI RJ independent sums hide the f64 latency;
+//   TJ = 16 RJ), rows i0.. against columns j0..; thread (tx, ty) holds the
+//   RI x RJ pairs (i0 + ty + 16k, j0 + tx + 16l) in registers, so a staged
+//   value feeds RJ (or RI) pairs and RI RJ independent sums hide the f64
+//   latency;
 // - two instances: 1 x 1 pairs a thread (sites unrolled 16 deep for the
 //   same latency hiding), for blocks too small to fill the card with 2 x 2
 //   threads, and 2 x 2 (two blocks an SM: 114 registers, no spills; three
@@ -60,161 +62,49 @@
 
 namespace {
 
-constexpr int TX = 16, TY = 16;  // threads: columns x rows
-constexpr int THREADS = TX * TY;
-constexpr int WARPS = THREADS / 32;
-constexpr int SC = 32;  // sites per staged chunk: one bit-plane word
-
-// Shared memory of a TI x TJ tile: f64 (a, b) pairs and s_single as
-// [SC][T + 1] (the +1 keeps the staging stores free of bank conflicts),
-// then one uint4 of bit planes a row and a column.
-template <int TI, int TJ>
-struct Stage {
-    double2 ab_i[SC][TI + 1];
-    double2 ab_j[SC][TJ + 1];
-    double s_i[SC][TI + 1];
-    double s_j[SC][TJ + 1];
-    uint4 bits_i[TI];  // x valid, y het, z hom AT, w hom CG
-    uint4 bits_j[TJ];
-};
-
-// Stage sample `g` (live when g < g_end) for sites s0 + lane: one warp a
-// sample, lane = site.
-__device__ __forceinline__ void stage_sample(const int32_t* __restrict__ A,
-                                             const int32_t* __restrict__ B,
-                                             const double* __restrict__ S, long pitch,
-                                             int g, int g_end, long s0, int width, long mc,
-                                             int lane, double2& ab, double& s, uint4& bits) {
-    const bool live = g < g_end && lane < width;
-    int a = 0, b = 0;
-    double sv = 0.0;
-    if (live) {
-        const long o = static_cast<long>(g) * pitch + s0 + lane;
-        a = A[o];
-        b = B[o];
-        sv = S[o];
-    }
-    // pad sites and rows past the cohort stay missing for any mc
-    const int code = live ? ntsm_site_code(a, b, mc) : 0;
-    ab = make_double2(static_cast<double>(a), static_cast<double>(b));
-    s = sv;
-    const unsigned v = __ballot_sync(0xffffffffu, code != 0);
-    const unsigned h = __ballot_sync(0xffffffffu, code == 3);
-    const unsigned at = __ballot_sync(0xffffffffu, code == 1);
-    const unsigned cg = __ballot_sync(0xffffffffu, code == 2);
-    if (lane == 0) bits = make_uint4(v, h, at, cg);
-}
-
 // RI x RJ pairs a thread, the site loop unrolled UNROLL deep, at least
 // MINB blocks an SM (which caps the registers a thread).
 template <int RI, int RJ, int UNROLL, int MINB>
-__global__ void __launch_bounds__(THREADS, MINB)
+__global__ void __launch_bounds__(NTSM_TILE_THREADS, MINB)
 pair_stats_kernel(const int32_t* __restrict__ A, const int32_t* __restrict__ B,
                   const double* __restrict__ S, long pitch, int n_samples,
                   long n_sites, int r0, int r1, long mc, const int32_t* __restrict__ tiles,
                   int32_t* __restrict__ ints, double* __restrict__ sums, long n_pairs) {
-    constexpr int TI = TY * RI, TJ = TX * RJ;
+    constexpr int TI = NTSM_TY * RI, TJ = NTSM_TX * RJ;
     extern __shared__ __align__(16) unsigned char smem[];
-    Stage<TI, TJ>& st = *reinterpret_cast<Stage<TI, TJ>*>(smem);
+    PairStage<TI, TJ>& st = *reinterpret_cast<PairStage<TI, TJ>*>(smem);
 
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * TX + tx, warp = tid / 32, lane = tid % 32;
     const int i0 = r0 + tiles[2 * blockIdx.x] * TI;
     const int j0 = tiles[2 * blockIdx.x + 1] * TJ;
-    const double mc0 = static_cast<double>(mc > 0 ? mc : 0);
 
-    double joint[RI][RJ], ss[RI][RJ];
-    int n[RI][RJ], ibs0[RI][RJ], shet[RI][RJ], h1[RI][RJ], h2[RI][RJ];
-#pragma unroll
-    for (int k = 0; k < RI; ++k) {
-#pragma unroll
-        for (int l = 0; l < RJ; ++l) {
-            joint[k][l] = ss[k][l] = 0.0;
-            n[k][l] = ibs0[k][l] = shet[k][l] = h1[k][l] = h2[k][l] = 0;
-        }
-    }
-
-    for (long s0 = 0; s0 < n_sites; s0 += SC) {
-        const int width = static_cast<int>(min(static_cast<long>(SC), n_sites - s0));
-#pragma unroll 4
-        for (int e = warp; e < TI + TJ; e += WARPS) {
-            if (e < TI) {
-                stage_sample(A, B, S, pitch, i0 + e, r1, s0, width, mc, lane,
-                             st.ab_i[lane][e], st.s_i[lane][e], st.bits_i[e]);
-            } else {
-                const int c = e - TI;
-                stage_sample(A, B, S, pitch, j0 + c, n_samples, s0, width, mc, lane,
-                             st.ab_j[lane][c], st.s_j[lane][c], st.bits_j[c]);
-            }
-        }
-        __syncthreads();
-
-        uint4 bi[RI], bj[RJ];
-#pragma unroll
-        for (int k = 0; k < RI; ++k) bi[k] = st.bits_i[ty + TY * k];
-#pragma unroll
-        for (int l = 0; l < RJ; ++l) bj[l] = st.bits_j[tx + TX * l];
-#pragma unroll
-        for (int k = 0; k < RI; ++k) {
-#pragma unroll
-            for (int l = 0; l < RJ; ++l) {
-                n[k][l] += __popc(bi[k].x & bj[l].x);
-                shet[k][l] += __popc(bi[k].y & bj[l].y);
-                h1[k][l] += __popc(bi[k].y & bj[l].x);
-                h2[k][l] += __popc(bi[k].x & bj[l].y);
-                ibs0[k][l] += __popc((bi[k].z & bj[l].w) | (bi[k].w & bj[l].z));
-            }
-        }
-
-#pragma unroll (UNROLL)
-        for (int c = 0; c < width; ++c) {
-            double2 abi[RI], abj[RJ];
-            double si[RI], sj[RJ];
-#pragma unroll
-            for (int k = 0; k < RI; ++k) {
-                abi[k] = st.ab_i[c][ty + TY * k];
-                si[k] = st.s_i[c][ty + TY * k];
-            }
-#pragma unroll
-            for (int l = 0; l < RJ; ++l) {
-                abj[l] = st.ab_j[c][tx + TX * l];
-                sj[l] = st.s_j[c][tx + TX * l];
-            }
-            const unsigned bit = 1u << c;
-#pragma unroll
-            for (int k = 0; k < RI; ++k) {
-#pragma unroll
-                for (int l = 0; l < RJ; ++l) {
-                    const bool valid = (bi[k].x & bj[l].x & bit) != 0;
-                    ntsm_pair_sums(joint[k][l], ss[k][l], valid, abi[k].x, abi[k].y, si[k],
-                                   abj[l].x, abj[l].y, sj[l], mc0);
-                }
-            }
-        }
-        __syncthreads();
-    }
+    PairTileAcc<RI, RJ> acc;
+    ntsm_tile_pairs<RI, RJ, UNROLL>(
+        acc, st, A, B, S, pitch, n_sites, mc, true,
+        [&](int e) { return i0 + e < r1 ? i0 + e : -1; },
+        [&](int c) { return j0 + c < n_samples ? j0 + c : -1; });
 
     const long lr0 = r0, last = n_samples - 1;
 #pragma unroll
     for (int k = 0; k < RI; ++k) {
-        const int i = i0 + ty + TY * k;
+        const int i = i0 + ty + NTSM_TY * k;
         if (i >= r1) continue;
         // pairs before row i in this block: sum over r in [r0, i) of (N-1-r)
         const long li = i;
         const long row = (li - lr0) * last - (li * (li - 1) / 2 - lr0 * (lr0 - 1) / 2);
 #pragma unroll
         for (int l = 0; l < RJ; ++l) {
-            const int j = j0 + tx + TX * l;
+            const int j = j0 + tx + NTSM_TX * l;
             if (j >= n_samples || j <= i) continue;
             const long p = row + (j - i - 1);
             if (p >= n_pairs) continue;  // cannot happen for a consistent n_pairs
-            ints[p] = n[k][l];
-            ints[n_pairs + p] = ibs0[k][l];
-            ints[2 * n_pairs + p] = shet[k][l];
-            ints[3 * n_pairs + p] = h1[k][l];
-            ints[4 * n_pairs + p] = h2[k][l];
-            sums[p] = joint[k][l];
-            sums[n_pairs + p] = ss[k][l];
+            ints[p] = acc.n[k][l];
+            ints[n_pairs + p] = acc.ibs0[k][l];
+            ints[2 * n_pairs + p] = acc.shet[k][l];
+            ints[3 * n_pairs + p] = acc.h1[k][l];
+            ints[4 * n_pairs + p] = acc.h2[k][l];
+            sums[p] = acc.joint[k][l];
+            sums[n_pairs + p] = acc.ss[k][l];
         }
     }
 }
@@ -223,12 +113,12 @@ template <int RI, int RJ, int UNROLL, int MINB>
 int launch(const void* A, const void* B, const void* S, long pitch, int n_samples,
            long n_sites, int r0, int r1, long mc, const void* tiles, int n_tiles, void* ints,
            void* sums, long n_pairs, cudaStream_t stream) {
-    constexpr int bytes = sizeof(Stage<TY * RI, TX * RJ>);
+    constexpr int bytes = sizeof(PairStage<NTSM_TY * RI, NTSM_TX * RJ>);
     auto kernel = pair_stats_kernel<RI, RJ, UNROLL, MINB>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<n_tiles, dim3(TX, TY), bytes, stream>>>(
+    kernel<<<n_tiles, dim3(NTSM_TX, NTSM_TY), bytes, stream>>>(
         static_cast<const int32_t*>(A), static_cast<const int32_t*>(B),
         static_cast<const double*>(S), pitch, n_samples, n_sites, r0, r1, mc,
         static_cast<const int32_t*>(tiles), static_cast<int32_t*>(ints),

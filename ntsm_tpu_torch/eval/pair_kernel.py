@@ -25,14 +25,17 @@ the kernel launches.
 :func:`pair_block_stats` gives the same ``(ints, sums)`` for a list of
 candidate pairs ``(ii[p], jj[p])`` of ``eval -p``, in the list's order (the
 TPU's K5, ``eval/kernels.py:_pair_block_stats_v2``): for CPU tensors it
-runs :func:`pair_block_stats_plain`, for CUDA tensors it launches
-``csrc/pair_block_stats.cu`` or raises.  ``launches_block`` counts its
-launches.
+runs :func:`pair_block_stats_plain`, for CUDA tensors it plans the list on
+the host (:func:`plan_pair_blocks`) and launches the instances of
+``csrc/pair_block_stats.cu`` the plan uses, or raises.
+``launches_block`` counts the tile instance's launches,
+``launches_block_sparse`` the sparse instance's.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -41,6 +44,7 @@ from ntsm_tpu_torch import csrc
 
 launches = 0
 launches_block = 0
+launches_block_sparse = 0
 
 N_INTS = 5  # n, ibs0, shared_hets, hets1, hets2
 # csrc/pair_stats.cu: a block of TILE x TILE threads, each holding RI x RJ
@@ -51,6 +55,14 @@ MICRO_TILES = ((1, 1), (2, 2))
 # SMs) 2x2 then runs from 4 * 132 * 1024 = 540,672 pairs a block, and 1x1 was
 # the faster at 302,736 pairs, 2x2 at 933,661 (experiments/exp_pair_stats.py)
 THREADS_PER_SM = 1024
+# csrc/pair_block_stats.cu: the sparse instance's pairs a block
+SPARSE_PAIRS = 128
+# a TILE x TILE tile of the -p plan whose distinct listed pairs fill at
+# least this share of its slots goes to the tile instance, the pairs of a
+# thinner one to the sparse instance (plan_pair_blocks): the density at
+# which the two cost the same on the H100, 208 ns a tile slot against 748
+# ns a sparse pair at 96,287 sites (experiments/exp_pair_block_stats.py)
+DENSITY_MIN = 0.28
 # elements of a [T, N, C] broadcast chunk in the plain version: bounds its
 # temporaries (a few f64 planes of this size) on either device
 PLAIN_CHUNK = {"cpu": 1 << 22, "cuda": 1 << 25}
@@ -249,44 +261,294 @@ def _check_pairs(a, ii, jj) -> None:
         raise ValueError("ii, jj must be contiguous")
     if not (ii.device == jj.device == a.device):
         raise ValueError("ii, jj must be on the planes' device")
-    if ii.numel() == 0:
+
+
+def _check_pair_values(ii: np.ndarray, jj: np.ndarray, n_samples: int) -> None:
+    """Host arrays: every index in [0, n_samples), no pair (i, i)."""
+    if ii.size == 0:
         return
-    N = a.shape[0]
-    lo = int(torch.minimum(ii.min(), jj.min()))
-    hi = int(torch.maximum(ii.max(), jj.max()))
-    if lo < 0 or hi >= N:
-        raise ValueError(f"pair indices outside [0, {N}): [{lo}, {hi}]")
+    lo = int(min(ii.min(), jj.min()))
+    hi = int(max(ii.max(), jj.max()))
+    if lo < 0 or hi >= n_samples:
+        raise ValueError(f"pair indices outside [0, {n_samples}): [{lo}, {hi}]")
     if bool((ii == jj).any()):
         raise ValueError("a pair (i, i) is no candidate: ii == jj")
 
 
-def pair_block_stats(a, b, s, ii, jj, mc: int, n_sites: int):
+@dataclass
+class PairPlan:
+    """A candidate list laid out for csrc/pair_block_stats.cu
+    (:func:`plan_pair_blocks`).  Tile instance: ``rows``, ``cols`` [T, TILE]
+    int32, each tile's row and column samples (-1: none), ``outs`` [T, TILE,
+    TILE] int32, the output index of each slot (-1: not listed).  Sparse
+    instance, pairs sorted by (i, j): ``irows`` [blocks, W] int32, each
+    block's distinct i samples packed first (then -1; W the most a block
+    has), and per pair
+    ``islot`` (its i's place there), ``jrow`` and ``out`` [Q] int32.
+    ``dup`` [2, D] int64: an index p that lists a pair again, and the index
+    whose results it copies.  Every distinct pair is in one tile slot or one
+    sparse entry, at its first index in the list."""
+
+    n_samples: int
+    n_pairs: int
+    rows: np.ndarray
+    cols: np.ndarray
+    outs: np.ndarray
+    irows: np.ndarray
+    islot: np.ndarray
+    jrow: np.ndarray
+    out: np.ndarray
+    dup: np.ndarray
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def n_sparse(self) -> int:
+        return int(self.out.size)
+
+    @property
+    def n_tiled(self) -> int:
+        """Distinct pairs the tile instance computes."""
+        return int((self.outs >= 0).sum())
+
+    def slots(self) -> int:
+        """Pair slots the kernels compute: a tile's every slot, a sparse pair."""
+        return self.n_tiles * TILE * TILE + self.n_sparse
+
+    def density(self) -> float:
+        """Distinct listed pairs over the slots computed (1.0 for none)."""
+        n = self.n_tiled + self.n_sparse
+        return n / self.slots() if n else 1.0
+
+    def tile_density(self) -> float:
+        """The tile instance's listed pairs over its slots (1.0 for none)."""
+        return self.n_tiled / (self.n_tiles * TILE * TILE) if self.n_tiles else 1.0
+
+    def device(self, device) -> dict:
+        """The plan's arrays on `device`, uploaded once (pinned, then
+        asynchronous copies: the upload never waits for the card)."""
+        key = str(device)
+        if key not in self._dev:
+            arrays = dict(rows=self.rows, cols=self.cols, outs=self.outs, irows=self.irows,
+                          islot=self.islot, jrow=self.jrow, out=self.out, dup=self.dup)
+            self._dev[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+                device, non_blocking=True) for k, v in arrays.items()}
+        return self._dev[key]
+
+
+def _components(n: int, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """[n] labels of the connected components of the graph on [0, n) with
+    edges (u[k], v[k]): hooking of roots to the smaller label, then pointer
+    jumping, until every edge joins equal labels."""
+    lab = np.arange(n, dtype=np.int64)
+    while True:
+        m = np.minimum(lab[u], lab[v])
+        new = lab.copy()
+        np.minimum.at(new, lab[u], m)
+        np.minimum.at(new, lab[v], m)
+        while True:
+            nxt = new[new]
+            if np.array_equal(nxt, new):
+                break
+            new = nxt
+        if np.array_equal(new, lab):
+            return lab
+        lab = new
+
+
+def _argsort(key: np.ndarray) -> np.ndarray:
+    """np.argsort(key, kind="stable") of int64 keys >= 0, as one np.sort of
+    each key packed with its index where the two fit in 63 bits (several
+    times faster than a stable argsort)."""
+    bits = max(1, (key.size - 1).bit_length())
+    if key.size == 0 or int(key.max()) >= 1 << (63 - bits):
+        return np.argsort(key, kind="stable")
+    return np.sort((key << bits) | np.arange(key.size)) & ((1 << bits) - 1)
+
+
+_HASH_MUL = 0x9E3779B1  # odd: j -> j * _HASH_MUL mod 2^32 is a bijection
+_HASH_INV = pow(_HASH_MUL, -1, 1 << 32)
+
+
+def _row_order(ii: np.ndarray, jj: np.ndarray, n_samples: int):
+    """The rows of a pair list grouped by i, ascending, and the order in
+    which the tiler groups them: rows whose j sets overlap next to each
+    other.  Each row is joined to the j of its pairs with the least hash
+    (one min-hash); the components of those edges hold rows that share
+    columns (an interleaved cluster stays one component).  Within a
+    component, rows by degree descending (a nearly dense row next to its
+    like), then index.  Returns (rows, their degrees, the order, each
+    row's component label)."""
+    start = np.flatnonzero(np.r_[True, ii[1:] != ii[:-1]])
+    rows = ii[start]
+    deg = np.diff(np.r_[start, ii.size])
+    mask = np.uint64(0xFFFFFFFF)
+    h = (jj.astype(np.uint64) * np.uint64(_HASH_MUL)) & mask
+    jmin = ((np.minimum.reduceat(h, start) * np.uint64(_HASH_INV)) & mask).astype(np.int64)
+    label = _components(n_samples, rows, jmin)[rows]
+    return rows, deg, np.lexsort((rows, -deg, label)), label
+
+
+def plan_pair_blocks(ii, jj, n_samples: int, density_min: float = DENSITY_MIN) -> PairPlan:
+    """The plan of the candidate list (ii[p], jj[p]) (host int arrays, p in
+    print order) over an n_samples cohort, in numpy: O(P log P), no loop
+    over pairs.
+
+    Distinct pairs keep the index of their first listing; (i, j) and
+    (j, i) are different pairs.  The rows are ordered by :func:`_row_order`
+    (a row's degree counts its repeats) and cut into groups of TILE rows; a group's columns
+    (the union of its rows' j's) are sorted by how many of its rows list
+    them, most first, and cut into TILE-wide tiles.  Groups do not straddle
+    two components of the row order: a component's last group may be
+    short.  A tile whose listed
+    pairs fill at least `density_min` of its TILE x TILE slots goes to the
+    tile instance, the pairs of the others to the sparse instance."""
+    ii = np.asarray(ii).astype(np.int64).ravel()
+    jj = np.asarray(jj).astype(np.int64).ravel()
+    if ii.shape != jj.shape:
+        raise ValueError(f"ii, jj must be [P] of one length, got {ii.shape}, {jj.shape}")
+    if n_samples >= 2**31:
+        raise ValueError(f"{n_samples} samples exceed the kernel's int32 indices")
+    _check_pair_values(ii, jj, n_samples)
+    P, N, T2 = ii.size, n_samples, TILE * TILE
+    i32 = lambda x: np.ascontiguousarray(x, dtype=np.int32)  # noqa: E731
+    if P == 0:
+        z = np.zeros(0, np.int32)
+        return PairPlan(N, 0, z.reshape(0, TILE), z.reshape(0, TILE), z.reshape(0, TILE, TILE),
+                        z.reshape(0, 1), z, z, z, np.zeros((2, 0), np.int64))
+
+    # the listings grouped by i (eval/pca.py gives them so), each i's in
+    # list order; ip: their indices in the list
+    ip = None if bool((ii[1:] >= ii[:-1]).all()) else _argsort(ii)
+    if ip is not None:
+        ii, jj = ii[ip], jj[ip]
+
+    # row groups of TILE rows, each inside one component
+    rows, deg, rorder, label = _row_order(ii, jj, N)
+    lab = label[rorder]
+    cstart = np.flatnonzero(np.r_[True, lab[1:] != lab[:-1]])
+    csize = np.diff(np.r_[cstart, lab.size])
+    cpos = np.arange(lab.size) - np.repeat(cstart, csize)  # place in its component
+    cgroups = -(-csize // TILE)
+    grp = np.empty(rows.size, np.int64)  # each distinct row's group and slot there
+    slot = np.empty(rows.size, np.int64)
+    grp[rorder] = np.repeat(np.cumsum(cgroups) - cgroups, csize) + cpos // TILE
+    slot[rorder] = cpos % TILE
+    n_groups = int(cgroups.sum())
+    group_rows = np.full((n_groups, TILE), -1, np.int64)
+    group_rows[grp, slot] = rows
+    grp_of, slot_of = np.zeros(N, np.int64), np.zeros(N, np.int64)  # by sample
+    grp_of[rows], slot_of[rows] = grp, slot
+
+    # the listings in (group, j, i, list index) order; a repeat of (i, j)
+    # follows its first listing
+    g = grp_of[ii]
+    o2 = _argsort(g * N + jj)
+    gs, js, is_ = g[o2], jj[o2], ii[o2]
+    op = o2 if ip is None else ip[o2]
+    new_col = np.r_[True, (gs[1:] != gs[:-1]) | (js[1:] != js[:-1])]
+    first = new_col | np.r_[False, is_[1:] != is_[:-1]]
+    dup = np.zeros((2, 0), np.int64)
+    if not first.all():
+        dup = np.stack([op[~first], op[first][np.cumsum(first)[~first] - 1]])
+        gs, js, is_, new_col = gs[first], js[first], is_[first], new_col[first]
+        op = op[first]
+
+    # each group's columns, most listed first, cut into tiles
+    run_start = np.flatnonzero(new_col)
+    run_g, run_j = gs[run_start], js[run_start]
+    run_n = np.diff(np.r_[run_start, gs.size])
+    o3 = np.lexsort((run_j, -run_n, run_g))
+    gstart = np.flatnonzero(np.r_[True, run_g[o3][1:] != run_g[o3][:-1]])
+    n_cols = np.diff(np.r_[gstart, o3.size])  # every group has a column
+    rank = np.empty(o3.size, np.int64)
+    rank[o3] = np.arange(o3.size) - np.repeat(gstart, n_cols)
+    chunks = -(-n_cols // TILE)
+    run_tile = (np.cumsum(chunks) - chunks)[run_g] + rank // TILE
+    run_id = np.repeat(np.arange(run_start.size), run_n)
+
+    # dense tiles to the tile instance: each run's slot base in t_outs
+    listed = np.bincount(run_tile, weights=run_n, minlength=int(chunks.sum()))
+    dense = listed >= density_min * T2
+    new_id = np.cumsum(dense) - 1
+    T = int(dense.sum())
+    t_rows = group_rows[np.repeat(np.arange(n_groups), chunks)[dense]]
+    keep = dense[run_tile]
+    t_cols = np.full((T, TILE), -1, np.int64)
+    t_cols[new_id[run_tile[keep]], rank[keep] % TILE] = run_j[keep]
+    base = np.where(keep, new_id[run_tile] * T2 + rank % TILE, -1)[run_id]
+    in_tile = base >= 0
+    t_outs = np.full(T * T2 + 1, -1, np.int32)  # + 1: a sink for the sparse pairs
+    t_outs[np.where(in_tile, base + slot_of[is_] * TILE, T * T2)] = op
+    t_outs = t_outs[:-1]
+
+    # the other pairs, by i, to the sparse instance, blocks of SPARSE_PAIRS
+    sp = np.flatnonzero(~in_tile)
+    sp = sp[_argsort(is_[sp])]
+    qi, qj, qp = is_[sp], js[sp], op[sp]
+    Q = qi.size
+    q = np.arange(Q)
+    new_i = np.r_[True, qi[1:] != qi[:-1]] | (q % SPARSE_PAIRS == 0)
+    cs = np.cumsum(new_i) - 1
+    islot = cs - cs[(q // SPARSE_PAIRS) * SPARSE_PAIRS]
+    irows = np.full((-(-Q // SPARSE_PAIRS), int(islot.max(initial=0)) + 1), -1, np.int64)
+    irows[q // SPARSE_PAIRS, islot] = qi
+    return PairPlan(N, P, i32(t_rows), i32(t_cols), i32(t_outs.reshape(T, TILE, TILE)),
+                    i32(irows), i32(islot),
+                    i32(qj), i32(qp), dup)
+
+
+def pair_block_stats(a, b, s, ii, jj, mc: int, n_sites: int, plan: PairPlan | None = None):
     """(ints [5, P] int32, sums [2, P] float64) for the candidate pairs
     (ii[p], jj[p]), in that order: a, b are [N, L] int32 allele count
     planes, s is :func:`s_single_plane` of them, ii and jj are [P] int32
     sample indices in [0, N) with ii != jj, and only sites [0, n_sites)
-    count."""
-    global launches_block
+    count.
+
+    On a card the list is planned on the host first: `plan`, if given, is
+    :func:`plan_pair_blocks` of the same list (its host copy, so nothing
+    waits for the card); without one the wrapper fetches ii and jj to make
+    it."""
+    global launches_block, launches_block_sparse
     N = a.shape[0]
     _check(a, b, s, 0, N, n_sites)
     _check_pairs(a, ii, jj)
     if a.device.type == "cpu":
+        _check_pair_values(ii.numpy(), jj.numpy(), N)
         return pair_block_stats_plain(a, b, s, ii, jj, mc, n_sites)
     if a.device.type != "cuda":
         raise ValueError(f"pair_block_stats: unsupported device {a.device}")
-    lib = csrc.load()
     P = ii.shape[0]
+    if plan is None:
+        plan = plan_pair_blocks(ii.cpu().numpy(), jj.cpu().numpy(), N)
+    if plan.n_pairs != P or plan.n_samples != N:
+        raise ValueError(f"the plan is of {plan.n_pairs} pairs of {plan.n_samples} samples, "
+                         f"not {P} of {N}")
+    lib = csrc.load()
     ints = torch.empty((N_INTS, P), dtype=torch.int32, device=a.device)
     sums = torch.empty((2, P), dtype=torch.float64, device=a.device)
     if P == 0:
         return ints, sums
-    rc = lib.ntsm_pair_block_stats(
-        ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
-        ctypes.c_void_p(s.data_ptr()), a.shape[1], n_sites,
-        ctypes.c_void_p(ii.data_ptr()), ctypes.c_void_p(jj.data_ptr()), P, int(mc),
-        ctypes.c_void_p(ints.data_ptr()), ctypes.c_void_p(sums.data_ptr()),
-        csrc.stream_ptr(a.device),
-    )
-    csrc.check(lib, rc, "pair_block_stats")
-    launches_block += 1
+    d = plan.device(a.device)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    stream = csrc.stream_ptr(a.device)
+    if plan.n_tiles:
+        rc = lib.ntsm_pair_block_tiles(
+            ptr(a), ptr(b), ptr(s), a.shape[1], n_sites, int(mc), ptr(d["rows"]),
+            ptr(d["cols"]), ptr(d["outs"]), plan.n_tiles, ptr(ints), ptr(sums), P, stream)
+        csrc.check(lib, rc, "pair_block_stats (tiles)")
+        launches_block += 1
+    if plan.n_sparse:
+        rc = lib.ntsm_pair_block_sparse(
+            ptr(a), ptr(b), ptr(s), a.shape[1], n_sites, int(mc), ptr(d["irows"]),
+            plan.irows.shape[1], ptr(d["islot"]), ptr(d["jrow"]), ptr(d["out"]),
+            plan.n_sparse, ptr(ints), ptr(sums), P, stream)
+        csrc.check(lib, rc, "pair_block_stats (sparse)")
+        launches_block_sparse += 1
+    if plan.dup.shape[1]:
+        ints[:, d["dup"][0]] = ints[:, d["dup"][1]]
+        sums[:, d["dup"][0]] = sums[:, d["dup"][1]]
     return ints, sums

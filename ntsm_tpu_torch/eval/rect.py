@@ -131,10 +131,12 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
     """PCA-filtered comparison (computeScorePCA, CompareCounts.hpp:285-391)
     on the device engine: the candidate pairs and their order are the exact
     engine's (eval/driver.py:compute_score_pca), scored on `device` in
-    slices of at most BLOCK_PAIRS.  Returns the seconds spent in each stage
-    (candidates, upload, score = kernel and fetch, finalize, emit) and the
-    number of candidate pairs."""
-    times = dict(candidates=0.0, upload=0.0, score=0.0, finalize=0.0, emit=0.0, pairs=0)
+    slices of at most BLOCK_PAIRS, each planned on the host from the host
+    list (pair_kernel.plan_pair_blocks).  Returns the seconds spent in each
+    stage (candidates, upload, tiles = the plans, score = kernel and fetch,
+    finalize, emit) and the number of candidate pairs."""
+    times = dict(candidates=0.0, upload=0.0, tiles=0.0, score=0.0, finalize=0.0, emit=0.0,
+                 pairs=0)
     t0 = time.monotonic()
     radii = search_radii(data, opts)
     out.write(HEADER)
@@ -156,17 +158,20 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
     samp_w = _sample_strings(data) if lib is not None else None
     for p0 in range(0, P, BLOCK_PAIRS):
         p1 = min(p0 + BLOCK_PAIRS, P)
+        iu, ju = ii_all[p0:p1], jj_all[p0:p1]
         t0 = time.monotonic()
+        plan = pair_kernel.plan_pair_blocks(iu, ju, data.n_samples) if a.is_cuda else None
+        tp = time.monotonic()
         ints_d, sums_d = pair_kernel.pair_block_stats(
-            a, b, s, ii_d[p0:p1], jj_d[p0:p1], opts.min_cov, data.n_sites)
+            a, b, s, ii_d[p0:p1], jj_d[p0:p1], opts.min_cov, data.n_sites, plan=plan)
         ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
         t1 = time.monotonic()
-        iu, ju = ii_all[p0:p1], jj_all[p0:p1]
         f3, i9 = finalize(data, opts, iu, ju, ints, sums)
         dist = pair_dist_sq(cloud, iu, ju, opts.dim)
         t2 = time.monotonic()
         _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w, dist=dist)
-        times["score"] += t1 - t0
+        times["tiles"] += tp - t0
+        times["score"] += t1 - tp
         times["finalize"] += t2 - t1
         times["emit"] += time.monotonic() - t2
     return times

@@ -14,7 +14,8 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
-from ntsm_tpu_torch.experiments import exp_dma_probe, exp_pair_stats, exp_pallas_gather
+from ntsm_tpu_torch.experiments import (
+    exp_dma_probe, exp_pair_block_stats, exp_pair_stats, exp_pallas_gather)
 from ntsm_tpu_torch.experiments import exp_pallas_gather2
 from ntsm_tpu_torch.experiments import gather
 
@@ -183,4 +184,27 @@ def test_pair_stats_program_cohort_and_no_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert exp_pair_stats.main([]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+
+
+def test_pair_block_stats_program_lists_and_no_card(capsys):
+    """exp_pair_block_stats' lists on the CPU: phase 9's shape, its j32
+    twin (the same i's, every j in [0, 32) and off i) and the sweep lists,
+    whose hand-made plans put every pair on the tile instance at the
+    stated density; the program itself needs a card."""
+    ii, jj = exp_pair_block_stats.grouped_pairs(np.random.default_rng(9), 1024, 50_037)
+    assert ii.size == 50_037 and (np.diff(ii) >= 0).all() and (ii != jj).all()
+    j = exp_pair_block_stats.j32(ii, jj)
+    assert j.max() < 32 and (j != ii).all()
+    rng = np.random.default_rng(11)
+    for d in (1 / 16, 0.5, 1.0):
+        li, lj, plan = exp_pair_block_stats.sweep_list(rng, 256, d)
+        assert plan.n_sparse == 0 and plan.tile_density() == d
+        t, r, c = np.nonzero(plan.outs >= 0)
+        p = plan.outs[t, r, c]
+        assert np.array_equal(np.sort(p), np.arange(li.size))
+        assert (plan.rows[t, r] == li[p]).all() and (plan.cols[t, c] == lj[p]).all()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert exp_pair_block_stats.main([]) == 1
     assert "needs a CUDA device" in capsys.readouterr().err

@@ -14,13 +14,17 @@ result; any failure raises and ends the run with a non-zero exit:
   0. card name and power limit (nvidia-smi), torch/CUDA versions;
      exit 1 if there is no CUDA device
   1. build the kernel library (nvcc) and the host reader (g++)
-  2. kernel 1 (window hash) and kernel 2 (probe and count) against their
-     plain versions at the main-path shape B = 32768, L = 256; bit-exact
-     (tolerance 0: integer outputs), with CUDA-event times per batch
+  2. the count kernels against their plain versions at the main-path shape
+     B = 32768, L = 256, bit-exact (tolerance 0: integer outputs), with
+     device times per batch: K1 (window hash) at k = 19, 31, 32; K4 (probe
+     and count) on planted hashes; the fused count step (window hash, probe
+     and count in one kernel) at k = 19, 31, 32 on a table holding real
+     k-mers of its batch
   3. the main path: a 96,287-site table and 360,000 150-bp reads through
      ``ntsm_tpu_torch.cli.main(["count", ...])``; counts.txt must be
-     byte-identical to ``--engine golden`` and both kernels' launch
-     counters must equal the number of batches
+     byte-identical to ``--engine golden``, the fused step's launch
+     counter must equal the number of batches, and the standalone K1 and
+     K4 must not launch
   4. byte parity with the count fixtures in tests/fixtures
   5. the pair-statistics kernel against its plain version at 96,287 sites:
      a 256-row block of a 1,024-sample cohort (diagonal and off-diagonal
@@ -73,6 +77,14 @@ result; any failure raises and ends the run with a non-zero exit:
  15. P3: the DMA-probe program: the ring at depths 4, 16 and 64 on the
      script's 32 MiB plane and 512 x 4096 indices equal to the plain XOR,
      with ms and M rows/s beside the plain fp[idx] gather's
+ 16. the count-kernels program as a user runs it
+     (``python -m ntsm_tpu_torch.experiments.exp_count_kernels``, without
+     its -Xptxas pass): K1, K4, the two back to back and the fused step at
+     phase 2's shape and at L = 4096 and 65536, each checked against its
+     plain version, and the fused step without and with an L2
+     access-policy window; K1's and K4's
+     launches in the kernels line are this program's (the main path runs
+     the fused step instead)
   then the card line, a kernels JSON line, and the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -89,10 +101,11 @@ peak rate of their type: 34 TFLOP/s for f64 outside the tensor cores
 float32 rate; a 64-bit integer operation counts as two).  Times are
 device times (``ntsm_tpu_torch/utils/timing.py:device_ms``: each call
 queued behind a device-side spin, between two events), except for the
-calls that wait for the device inside, K4's plain version, timed with
-events around each call (``event_ms``), and the pair kernels' plain
-versions, timed once.  The candidate-pair kernel is timed with its plan
-made beforehand (the plan is host work, timed apart).
+calls that wait for the device inside, K4's and the fused step's plain
+versions, timed with events around each call (``event_ms``), and the pair
+kernels' plain versions, timed once.  The candidate-pair
+kernel is timed with its plan made beforehand (the plan is host work,
+timed apart).
 """
 
 from __future__ import annotations
@@ -263,6 +276,58 @@ def check_probe(device, rng, card: str) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
+def check_count_step(device, rng, k: int, card: str) -> dict:
+    """Phase 2: the fused count step against its plain version (the plain
+    window hash, then the plain probe) on a random batch and a table of
+    phase 2's size holding real k-mers of the batch (it cannot take
+    planted hashes: it hashes the windows itself)."""
+    import torch
+
+    from ntsm_tpu_torch.count import kernel_v3
+    from ntsm_tpu_torch.count.kernel_v2 import window_hashes_packed
+    from ntsm_tpu_torch.experiments.exp_count_kernels import fused_batch, real_table, split
+
+    packed, vbits = split(fused_batch(device, rng, k, rows=B, seglen=L), L)
+    h_p, v_p = window_hashes_packed(packed, vbits, k, L)
+    hashes = real_table(h_p, v_p, rng)
+    tab = kernel_v3.TableV3.from_hashes(hashes, device)
+    c_k = torch.zeros(tab.n_kmers + 1, dtype=torch.int32, device=device)
+    c_p = torch.zeros_like(c_k)
+    d_k = kernel_v3.count_step_v3(packed, vbits, tab, c_k, k, L)
+    d_p = kernel_v3.probe_and_count(
+        h_p, v_p, tab.fp, tab.keys, tab.vals, c_p, n_buckets=tab.n_buckets, bbits=tab.bbits
+    )
+    torch.cuda.synchronize()
+    err = max(max_abs_err(c_k, c_p), max_abs_err(d_k, d_p))
+    check(err == 0.0, f"count_step k={k}: counts/diag differ from plain "
+          f"({d_k.tolist()} vs {d_p.tolist()})")
+    diag = d_k.tolist()
+    check(diag[2] > 0, f"count_step k={k}: no hits on a table of the batch's k-mers")
+    scratch = torch.zeros_like(c_k)
+    ms = device_ms(lambda: kernel_v3.count_step_v3(packed, vbits, tab, scratch, k, L))
+
+    def plain():
+        h, v = window_hashes_packed(packed, vbits, k, L)
+        kernel_v3.probe_and_count(h, v, tab.fp, tab.keys, tab.vals, scratch,
+                                  n_buckets=tab.n_buckets, bbits=tab.bbits)
+    plain_ms = event_ms(plain)
+    # bytes: the fused rows in, the fingerprint plane (every bucket may be
+    # probed), the key and value rows of each candidate bucket, a count
+    # read-modify-write a hit; operations: the canonical min and hash64 of
+    # every window (~25 64-bit integer ones, as K1's) and the probe of each
+    # valid window (~10, as K4's)
+    n_valid, n_cand, n_hits = diag
+    n_windows = packed.shape[0] * (L - k + 1)
+    n_bytes = (packed.nbytes + vbits.nbytes + tab.fp.nbytes + n_cand * 8 * (8 + 4)
+               + n_hits * 8)
+    b = bound(n_bytes, (n_windows * 25 + n_valid * 10) * 2, OPS32_PER_S)
+    print(f"phase 2: count_step k={k} B={B} L={L}: counts and diag {diag} bit-exact vs "
+          f"plain (table {hashes.size} k-mers, {tab.n_buckets} buckets); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms per batch, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}, {n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -340,6 +405,7 @@ def reset_launches() -> None:
     from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
+    kernel_v3.launches_step = 0
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
@@ -368,7 +434,9 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     got = cli_count(["-s", sites, fq])
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches}
+    launches = {"count_step": kernel_v3.launches_step}
+    standalone = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
+                  "window_hash_codes": hash_kernel.launches_codes}
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
           "ntsm count launched an eval kernel")
@@ -377,10 +445,12 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     gold_sec = time.monotonic() - t0
     check(got == want, "counts.txt differs from --engine golden")
     check(got.count("\n") == N_SITES + 3, "counts.txt has the wrong number of lines")
-    for name, n in launches.items():
-        check(n == n_batches, f"{name} launched {n} times for {n_batches} batches")
+    check(launches["count_step"] == n_batches,
+          f"count_step launched {launches['count_step']} times for {n_batches} batches")
+    check(not any(standalone.values()), f"ntsm count launched a standalone kernel {standalone}")
     print(f"phase 3: ntsm count on the card: counts.txt byte-identical to golden "
-          f"({gold_sec:.1f} s); launches {launches} = {n_batches} batches; "
+          f"({gold_sec:.1f} s); launches {launches} = {n_batches} batches, standalone "
+          f"{standalone}; "
           f"{sec:.2f} s end to end (CLI incl. site load), "
           f"{n_bases / sec / 1e6:.2f} Mbase/s [{card}]", flush=True)
 
@@ -1188,8 +1258,8 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> int:
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = hash_kernel.launches_codes
-    check(hash_kernel.launches == kernel_v3.launches == 0,
-          "the v1 engine launched window_hash or probe_count")
+    check(hash_kernel.launches == kernel_v3.launches == kernel_v3.launches_step == 0,
+          "the v1 engine launched window_hash, probe_count or count_step")
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
           "the v1 engine launched an eval kernel")
@@ -1291,6 +1361,39 @@ def dma_probe_program(device, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def count_kernels_program(device, work: str, card: str) -> tuple:
+    """Phase 16: the count-kernels program as a user runs it
+    (experiments/exp_count_kernels.py, without its -Xptxas pass): K1, K4,
+    the two back to back and the fused step at k = 19, 31, 32 (L = 256)
+    and at k = 19, L = 4096 and 65536, and the fused step without and with
+    an L2 window.  Returns K1's and K4's launches (the program's) and its
+    result."""
+    import torch
+
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.experiments import exp_count_kernels
+
+    reset_launches()
+    res, ok = exp_count_kernels.run(device, work, ptxas=False)
+    torch.cuda.synchronize()
+    launches = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches}
+    check(ok, "exp_count_kernels: a kernel differs from its plain version")
+    check(all(launches.values()), f"exp_count_kernels launched {launches}")
+    for row in res["cases"]:
+        l2 = row["l2"]
+        print(f"phase 16: k={row['k']} L={row['L']} B={row['B']}: K1 {min(row['k1']):.4f}, "
+              f"K4 {min(row['k4']):.4f}, K1 + K4 {min(row['k1k4']):.4f}, fused step "
+              f"{min(row['step']):.4f} ms; with an L2 window over the fp plane "
+              f"({l2['set_aside']} B set aside) off/on/on/off "
+              f"{l2['off'][0]:.4f}/{l2['on'][0]:.4f}/{l2['on'][1]:.4f}/{l2['off'][1]:.4f} ms, "
+              f"set up and reset in {l2['window_host_ms']:.3f} ms [{card}]", flush=True)
+    print(f"phase 16: exp_count_kernels: launches {launches}", flush=True)
+    return launches, res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1322,6 +1425,7 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     hashes = {k: check_window_hash(device, rng, k, card) for k in (19, 31, 32)}
     probe = check_probe(device, rng, card)
+    steps = {k: check_count_step(device, rng, k, card) for k in (19, 31, 32)}
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
@@ -1354,6 +1458,8 @@ def main() -> int:
         launches["window_hash_codes"] = v1_path(device, sites, fq, golden_text, card)
         gathers = {name: gather_program(device, name, card) for name in ("p1", "p2")}
         dma = dma_probe_program(device, card)
+        standalone, _ = count_kernels_program(device, work, card)
+        launches.update(standalone)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1366,6 +1472,10 @@ def main() -> int:
              source="ntsm_tpu_torch/csrc/probe_count.cu",
              replaces="ntsm_tpu/count/kernel_v3.py:270",
              launches=launches["probe_count"], **probe),
+        dict(name="count_step", route="cuda",
+             source="ntsm_tpu_torch/csrc/hash_probe_count.cu",
+             replaces="ntsm_tpu/count/pallas_kernel.py:162 + ntsm_tpu/count/kernel_v3.py:270",
+             launches=launches["count_step"], **steps[K]),
         dict(name="pair_stats", route="cuda",
              source="ntsm_tpu_torch/csrc/pair_stats.cu",
              replaces="ntsm_tpu/eval/pallas_joint.py:54",

@@ -1,7 +1,7 @@
 """Counting engines (counterpart of ntsm_tpu/count/engine.py).
 
 :func:`run_count` runs the v3 engine by default (run_count_v3 there): a
-host feed thread and the two count kernels, described below.  With
+host feed thread and the fused count kernel, described below.  With
 ``version=1`` it runs :func:`run_count_v1`, the unpacked-codes engine (K2
 and the plain bucket probe of count/kernel.py); the v2 engine is not yet
 ported.
@@ -11,11 +11,12 @@ The v3 engine:
 A producer thread reads batches (the native reader releases the GIL),
 2-bit packs them and fuses each into one pinned [rows, 3L/8] u8 host
 buffer.  The main thread copies it to the device without blocking and
-launches kernel 1 (window hash) and kernel 2 (probe and count) on PyTorch's
-current stream.  The per-k-mer counts stay on the device as int32
-[n_kmers + 1] for the whole run; per-batch diagnostics [n_valid, n_cand,
-n_hits] are fetched to the host in groups, which also drives -m early
-termination (reference: FingerPrint.hpp:41-43,476-487).
+launches the fused count step (count/kernel_v3.py:count_step_v3: window
+hash, probe and count in one kernel) on PyTorch's current stream.  The
+per-k-mer counts stay on the device as int32 [n_kmers + 1] for the whole
+run; per-batch diagnostics [n_valid, n_cand, n_hits] are fetched to the
+host in groups, which also drives -m early termination (reference:
+FingerPrint.hpp:41-43,476-487).
 
 The -m cadence is the JAX engine's, so a -m run stops on the same batch:
 with window = max(2, early_term_check_every), once 2*window batches are
@@ -38,10 +39,9 @@ import numpy as np
 import torch
 
 from ntsm_tpu_torch.count.golden import CountResult, max_counts_threshold
-from ntsm_tpu_torch.count.hash_kernel import window_hashes
 from ntsm_tpu_torch.count.kernel import count_step, make_table_arrays
 from ntsm_tpu_torch.count.kernel_v2 import pack_batch_fast
-from ntsm_tpu_torch.count.kernel_v3 import TableV3, probe_count
+from ntsm_tpu_torch.count.kernel_v3 import TableV3, count_step_v3
 from ntsm_tpu_torch.io.fastx import BatchReader, ParallelFileReader, _bounded_put
 from ntsm_tpu_torch.io.sites import SiteTable, build_lookup
 from ntsm_tpu_torch.options import Options
@@ -214,8 +214,7 @@ def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
             fused, n_reads, n_bases = item
             t0 = time.monotonic()
             f = fused.to(device, non_blocking=True)
-            h, valid = window_hashes(f[:, : L // 4], f[:, L // 4 :], k, L)
-            pending.append(probe_count(h, valid, tab, counts))
+            pending.append(count_step_v3(f[:, : L // 4], f[:, L // 4 :], tab, counts, k, L))
             batch_idx += 1
             total_bases += n_bases
             total_reads += n_reads

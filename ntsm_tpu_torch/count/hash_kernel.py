@@ -1,8 +1,11 @@
 """The window hash of the count path, both entry points of
 ``csrc/window_hash.cu`` (counterpart of ntsm_tpu/count/pallas_kernel.py):
 
-* K1, :func:`window_hashes`, from a 2-bit packed batch: the v3 engine's
-  (count/engine.py:run_count); plain version kernel_v2.window_hashes_packed.
+* K1, :func:`window_hashes`, from a 2-bit packed batch; plain version
+  kernel_v2.window_hashes_packed.  Its window stage (csrc/window_stage.cuh)
+  is also the first half of the fused count step
+  (count/kernel_v3.py:count_step_v3), which the v3 engine
+  (count/engine.py:run_count) launches in its place.
 * K2, :func:`window_hashes_codes`, from unpacked u8 codes and row lengths:
   the v1 engine's (count/kernel.py:count_step); plain version
   kernel_v2.window_hashes_codes_plain.
@@ -33,7 +36,10 @@ def _check_k(k: int, L: int) -> None:
         raise ValueError(f"segment length {L} must be >= k={k}")
 
 
-def _check_packed(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: int) -> None:
+def check_packed(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: int) -> None:
+    """The checks of a packed batch [B, L/4] + [B, L/8] (K1 and the fused
+    count step): uint8, contiguous rows, one row count and device, L % 8
+    == 0, 1 <= k <= 32 and k <= L."""
     _check_k(k, L)
     if L % 8:
         raise ValueError(f"segment length {L} must be a multiple of 8")
@@ -55,7 +61,7 @@ def window_hashes(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: int):
     may be column slices of one fused [B, 3L/8] upload (the row pitch is
     passed to the kernel)."""
     global launches
-    _check_packed(packed, vbits, k, L)
+    check_packed(packed, vbits, k, L)
     if packed.device.type == "cpu":
         return window_hashes_packed(packed, vbits, k, L)
     if packed.device.type != "cuda":

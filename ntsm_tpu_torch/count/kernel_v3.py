@@ -1,14 +1,17 @@
-"""Site-table probe planes and kernel 2 of the count path
-(counterpart of ntsm_tpu/count/kernel_v3.py).
+"""Site-table probe planes, the probe (K4) and the fused count step of the
+count path (counterpart of ntsm_tpu/count/kernel_v3.py).
 
 The table is bucketed open addressing (io/sites.build_lookup's layout):
 ``n_buckets`` rows of 8 slots, bucket = hash & (n_buckets - 1), with three
 planes — a 1-byte fingerprint filter, the exact key and the k-mer index.
-:func:`probe_and_count` is the plain PyTorch probe; :func:`probe_count` is
-the wrapper the engine calls, which launches ``csrc/probe_count.cu`` for
-CUDA tensors and runs the plain probe for CPU tensors.  Both verify EVERY
-fingerprint candidate against the key plane, so unlike the JAX stage there
-is no candidate budget, no overflow flag and no host recount tier.
+:func:`probe_and_count` is the plain PyTorch probe; :func:`probe_count`
+launches ``csrc/probe_count.cu`` (K4) for CUDA tensors and runs the plain
+probe for CPU tensors.  :func:`count_step_v3`, the step the v3 engine
+calls once a batch, hashes a packed batch's windows and probes them in one
+kernel, ``csrc/hash_probe_count.cu``; its plain version is the plain
+window hash then the plain probe.  All of them verify EVERY fingerprint
+candidate against the key plane, so unlike the JAX stage there is no
+candidate budget, no overflow flag and no host recount tier.
 
 Reference for the semantics: FingerPrint::insertCount
 (src/FingerPrint.hpp:89-103) — one table probe per k-mer window and an
@@ -24,12 +27,15 @@ import torch
 
 from ntsm_tpu_torch import csrc
 from ntsm_tpu_torch.core.hash import srl
+from ntsm_tpu_torch.count.hash_kernel import check_packed
+from ntsm_tpu_torch.count.kernel_v2 import window_hashes_packed
 from ntsm_tpu_torch.io.sites import size_buckets
 
 SLOTS = 8
 EMPTY_KEY = -1  # io/sites.EMPTY_KEY (all ones) as int64 bits
 
-launches = 0
+launches = 0  # K4, probe_count
+launches_step = 0  # the fused count step, count_step_v3
 
 
 def fingerprint(rem: torch.Tensor) -> torch.Tensor:
@@ -134,6 +140,29 @@ def probe_and_count(h, valid, fp_t, keys_t, vals_t, counts, *, n_buckets: int, b
     ]).to(torch.int32)
 
 
+def _check_table(what: str, table: TableV3, counts: torch.Tensor, *tensors) -> torch.device:
+    """The device of a probe's tensors, after the checks both probe
+    wrappers share: counts int32 [>= n_kmers + 1], one device; on the card
+    contiguous planes and counts, and 8-byte aligned fingerprint rows."""
+    if counts.dtype != torch.int32 or counts.dim() != 1 or counts.shape[0] < table.n_kmers + 1:
+        raise ValueError(f"counts must be int32 [>= {table.n_kmers + 1}]")
+    devices = {t.device for t in (*tensors, counts, table.fp, table.keys, table.vals)}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: tensors on several devices {devices}")
+    device = counts.device
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    for name, t in (("counts", counts), ("fp", table.fp), ("keys", table.keys),
+                    ("vals", table.vals)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if table.fp.data_ptr() % 8:
+        raise ValueError(f"{what}: fp rows must be 8-byte aligned")
+    return device
+
+
 def probe_count(h: torch.Tensor, valid: torch.Tensor, table: TableV3, counts: torch.Tensor):
     """Kernel 2 wrapper: the exact probe of a [B, W] window batch into
     `counts` (in place); returns the batch's diag [3] int32 on its device.
@@ -143,25 +172,15 @@ def probe_count(h: torch.Tensor, valid: torch.Tensor, table: TableV3, counts: to
     global launches
     if h.dtype != torch.int64 or valid.dtype != torch.bool or h.shape != valid.shape:
         raise TypeError("h must be int64 and valid bool, of one shape")
-    if counts.dtype != torch.int32 or counts.dim() != 1 or counts.shape[0] < table.n_kmers + 1:
-        raise ValueError(f"counts must be int32 [>= {table.n_kmers + 1}]")
-    devices = {t.device for t in (h, valid, counts, table.fp, table.keys, table.vals)}
-    if len(devices) != 1:
-        raise ValueError(f"probe_count: tensors on several devices {devices}")
-    device = h.device
+    device = _check_table("probe_count", table, counts, h, valid)
     if device.type == "cpu":
         return probe_and_count(
             h, valid, table.fp, table.keys, table.vals, counts,
             n_buckets=table.n_buckets, bbits=table.bbits,
         )
-    if device.type != "cuda":
-        raise ValueError(f"probe_count: unsupported device {device}")
-    for name, t in (("h", h), ("valid", valid), ("counts", counts), ("fp", table.fp),
-                    ("keys", table.keys), ("vals", table.vals)):
+    for name, t in (("h", h), ("valid", valid)):
         if not t.is_contiguous():
             raise ValueError(f"probe_count: {name} must be contiguous")
-    if table.fp.data_ptr() % 8:
-        raise ValueError("probe_count: fp rows must be 8-byte aligned")
     lib = csrc.load()
     diag = torch.zeros(3, dtype=torch.int32, device=device)
     rc = lib.ntsm_probe_count(
@@ -174,3 +193,39 @@ def probe_count(h: torch.Tensor, valid: torch.Tensor, table: TableV3, counts: to
     csrc.check(lib, rc, "probe_count")
     launches += 1
     return diag
+
+
+def count_step_v3(packed: torch.Tensor, vbits: torch.Tensor, table: TableV3,
+                  counts: torch.Tensor, k: int, L: int) -> torch.Tensor:
+    """One counting step of the v3 engine (ntsm_tpu/count/kernel_v3.py:
+    count_step_v3): every window of a packed batch hashed and probed, hits
+    added into `counts` IN PLACE; returns the batch's diag [n_valid,
+    n_cand, n_hits] int32 on its device.
+
+    packed [B, L/4] and vbits [B, L/8] are uint8 with contiguous rows, as
+    for hash_kernel.window_hashes (column slices of one fused upload).  CPU
+    tensors run the plain window hash then the plain probe; CUDA tensors
+    launch ``csrc/hash_probe_count.cu`` or raise."""
+    global launches_step
+    check_packed(packed, vbits, k, L)
+    device = _check_table("count_step_v3", table, counts, packed, vbits)
+    if device.type == "cpu":
+        h, valid = window_hashes_packed(packed, vbits, k, L)
+        return probe_and_count(
+            h, valid, table.fp, table.keys, table.vals, counts,
+            n_buckets=table.n_buckets, bbits=table.bbits,
+        )
+    lib = csrc.load()
+    diag = torch.zeros(3, dtype=torch.int32, device=device)
+    rc = lib.ntsm_count_step(
+        ctypes.c_void_p(packed.data_ptr()), packed.stride(0),
+        ctypes.c_void_p(vbits.data_ptr()), vbits.stride(0), packed.shape[0], L, k,
+        ctypes.c_void_p(table.fp.data_ptr()), ctypes.c_void_p(table.keys.data_ptr()),
+        ctypes.c_void_p(table.vals.data_ptr()), table.n_buckets, table.bbits,
+        ctypes.c_void_p(counts.data_ptr()), ctypes.c_void_p(diag.data_ptr()),
+        csrc.stream_ptr(device),
+    )
+    csrc.check(lib, rc, "count_step")
+    launches_step += 1
+    return diag
+

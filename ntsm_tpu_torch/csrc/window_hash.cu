@@ -4,17 +4,14 @@
 //   K1, ntsm_window_hash: a 2-bit packed batch (the v3 engine's upload).
 //       Replaces the Pallas kernel ntsm_tpu/count/pallas_kernel.py:
 //       _window_hash_kernel_packed (and its XLA twin count/kernel_v2.py:
-//       _window_hashes_from).
+//       _window_hashes_from).  The v3 engine no longer launches it: it runs
+//       the fused count step (hash_probe_count.cu), which shares K1's window
+//       stage (window_stage.cuh).  K1 stays for the stage's tests and
+//       chip_smoke.py / experiments/exp_count_kernels.py.
 //   K2, ntsm_window_hash_codes: unpacked u8 codes plus row lengths (the v1
 //       engine's upload).  Replaces the Pallas kernel
 //       ntsm_tpu/count/pallas_kernel.py:_window_hash_kernel (and its XLA
 //       twin count/kernel.py:window_hashes).
-//
-// The TPU kernels emulate uint64 with (hi, lo) uint32 pairs and roll whole
-// [tile, L] rows through VMEM; Hopper has native 64-bit integer ops, so here
-// one thread owns one window and builds it directly.  Both entry points run
-// the same per-window loop (window_hash_kernel below), templated over how a
-// base is fetched, so the two layouts cannot drift apart.
 //
 // K1 input, per row b (the block layout of kernel_v2.pack_batch):
 //   packed[b, j]  holds bases j, j+L/4, j+L/2, j+3L/4 at bit pairs 0/2/4/6,
@@ -32,52 +29,24 @@
 // What bounds them on the H100: at the main-path shape (B = 32768, L = 256,
 // k = 19; 7.8M windows) K1 reads 3 MB and K2 8.5 MB, and both write 70 MB
 // (8 B of hash and 1 B of validity per window), which the published
-// 3.35 TB/s moves in 21-24 us.  K1 measured 0.315 ms a batch (NVIDIA H100
-// 80GB HBM3, 700.00 W; PERF.md), so memory does not bound it: each thread
-// re-reads and re-shifts its own k bases (~20 integer instructions a base,
-// several hundred a window with the hash), and instruction issue does.  The
-// design accepts that for now: rows are read through L1 (neighbouring
-// threads read the same or neighbouring bytes) and the writes are coalesced
-// (thread t writes window t).  A rolling form that shares the k-base shift
-// across a row in shared memory, and fusing this kernel into the probe so
-// that h never reaches HBM, are later work.
+// 3.35 TB/s moves in 21-24 us.  Rebuilding each window from its k bases
+// (~20 integer instructions a base), as K2 still does, K1 took 0.265 ms a
+// batch, and without its stores the same (NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md): instruction issue bound it.  K1 now stages each row once in shared
+// memory (window_stage.cuh: one warp a piece of up to 2,080 bases, decoded
+// into linear forward, reverse-complement and validity words) and takes
+// each window from three words; lane t writes window t of its warp's
+// piece, so the stores are coalesced.  K2 keeps the per-window loop below
+// (one thread a window, its k bases walked through a cursor).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "window_stage.cuh"
 
 namespace {
-
-// K1's base fetch: two cursors walk the packed bases and the validity bits.
-struct PackedRows {
-    const uint8_t* packed;
-    long packed_pitch;
-    const uint8_t* vbits;
-    long vbits_pitch;
-    int Q, E;  // L/4 and L/8
-
-    struct Cursor {
-        const uint8_t* prow;
-        const uint8_t* vrow;
-        int Q, E, pq, pr, vq, vr;
-
-        __device__ __forceinline__ void next(uint64_t& c, unsigned& good) {
-            c = (prow[pr] >> (2 * pq)) & 3u;
-            good = (vrow[vr] >> vq) & 1u;
-            if (++pr == Q) { pr = 0; ++pq; }
-            if (++vr == E) { vr = 0; ++vq; }
-        }
-    };
-
-    __device__ __forceinline__ Cursor at(long b, int w) const {
-        // base w: byte pr at bit pair pq, validity byte vr at bit vq
-        const int pq = w / Q, vq = w / E;
-        return Cursor{packed + b * packed_pitch, vbits + b * vbits_pitch,
-                      Q, E, pq, w - pq * Q, vq, w - vq * E};
-    }
-};
 
 // K2's base fetch: one code byte a base; the read ends at its row's length.
 struct CodeRows {
@@ -141,16 +110,40 @@ int launch(const Rows& rows, int B, int L, int k, void* h_out, void* valid_out,
     return static_cast<int>(cudaGetLastError());
 }
 
+// K1: one warp a piece of a row, staged once; lane t takes windows
+// w_begin + t, w_begin + t + 32, ...
+__global__ void stage_hash_kernel(PackedBatch in, int k, int64_t* __restrict__ h_out,
+                                  uint8_t* __restrict__ valid_out) {
+    extern __shared__ uint64_t stage_smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    WindowStage st = WindowStage::at(stage_smem, warp, ntsm_stage_bytes(in.L), in.L);
+    const int W = in.L - k + 1;
+    const uint64_t mask = ntsm_kmer_mask(k);
+    const uint32_t kmask = ntsm_good_mask(k);
+    ntsm_stage_rows(st, in, k, lane, static_cast<long>(blockIdx.x) * kStageRows + warp,
+                    static_cast<long>(gridDim.x) * kStageRows,
+                    [&](long b, int w_begin, int w_end) {
+        int64_t* h_row = h_out + b * W;
+        uint8_t* v_row = valid_out + b * W;
+        for (int w = w_begin + lane; w < w_end; w += 32) {
+            h_row[w] = static_cast<int64_t>(st.hash(w, k, mask));
+            v_row[w] = static_cast<uint8_t>(st.valid(w, kmask));
+        }
+    });
+}
+
 }  // namespace
 
 extern "C" int ntsm_window_hash(const void* packed, long packed_pitch,
                                 const void* vbits, long vbits_pitch, int B,
                                 int L, int k, void* h_out, void* valid_out,
                                 void* stream) {
-    const PackedRows rows{static_cast<const uint8_t*>(packed), packed_pitch,
-                          static_cast<const uint8_t*>(vbits), vbits_pitch,
-                          L / 4, L / 8};
-    return launch(rows, B, L, k, h_out, valid_out, stream);
+    const StageLaunch launch = ntsm_stage_launch(B, L);
+    stage_hash_kernel<<<launch.grid, kStageRows * 32, launch.smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        ntsm_packed_batch(packed, packed_pitch, vbits, vbits_pitch, B, L), k,
+        static_cast<int64_t*>(h_out), static_cast<uint8_t*>(valid_out));
+    return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ntsm_window_hash_codes(const void* codes, long pitch,

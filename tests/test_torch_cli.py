@@ -48,6 +48,16 @@ def test_cli_golden_engine_and_summary_file(capsys, tmp_path):
     assert summary.read_text() in (FIX / "sampleA_count_stderr.txt").read_text()
 
 
+@pytest.mark.parametrize("seglen", ["4096", "262144"])
+def test_cli_long_seglen_matches_fixture(capsys, seglen):
+    """--seglen takes any multiple of 8 from 64 on (no ceiling: the card's
+    window stage cuts a long row into pieces); the counts are the same."""
+    rc, out, _ = _run(["--device", "cpu", "--seglen", seglen, "-s", str(FIX / "sites.fa"),
+                       str(FIX / "sampleA.fq")], capsys)
+    assert rc == 0
+    assert out == (FIX / "sampleA_counts.txt").read_text()
+
+
 def _error_cases(tmp_path, rng):
     sites = str(tmp_path / "s.fa")
     make_site_fasta(rng, n_sites=2, path=sites)

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from ntsm_tpu_torch.experiments import (
-    exp_dma_probe, exp_pair_block_stats, exp_pair_stats, exp_pallas_gather)
+    exp_count_kernels, exp_dma_probe, exp_pair_block_stats, exp_pair_stats, exp_pallas_gather)
 from ntsm_tpu_torch.experiments import exp_pallas_gather2
 from ntsm_tpu_torch.experiments import gather
 
@@ -207,4 +207,33 @@ def test_pair_block_stats_program_lists_and_no_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert exp_pair_block_stats.main([]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+
+
+def test_count_kernels_program_no_card(capsys):
+    """exp_count_kernels' inputs on the CPU at a small size: a fused upload
+    of ragged reads and a table holding real k-mers of the batch (so the
+    fused step finds hits, equal to the plain probe's); the program itself
+    needs a card."""
+    from ntsm_tpu_torch.count import kernel_v3
+    from ntsm_tpu_torch.count.kernel_v2 import window_hashes_packed
+
+    rng = np.random.default_rng(3)
+    k, rows, seglen = 19, 64, 128
+    fused = exp_count_kernels.fused_batch(torch.device("cpu"), rng, k, rows=rows, seglen=seglen)
+    assert fused.dtype == torch.uint8 and tuple(fused.shape) == (rows, 3 * seglen // 8)
+    packed, vbits = exp_count_kernels.split(fused, seglen)
+    h, valid = window_hashes_packed(packed, vbits, k, seglen)
+    assert 0 < int(valid.sum()) < valid.numel()  # Ns and ragged ends
+    hashes = exp_count_kernels.real_table(h, valid, rng, n_real=300, n_table=5000)
+    assert hashes.dtype == np.uint64 and hashes.size == np.unique(hashes).size
+    assert 4900 < hashes.size <= 5000
+    assert np.isin(h[valid].numpy().view(np.uint64), hashes).sum() >= 300
+    tab = kernel_v3.TableV3.from_hashes(hashes, "cpu")
+    counts = torch.zeros(tab.n_kmers + 1, dtype=torch.int32)
+    diag = kernel_v3.count_step_v3(packed, vbits, tab, counts, k, seglen)
+    assert int(diag[2]) >= 300 and int(counts.sum()) == int(diag[2])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert exp_count_kernels.main([]) == 1
     assert "needs a CUDA device" in capsys.readouterr().err

@@ -23,8 +23,8 @@ result; any failure raises and ends the run with a non-zero exit:
   3. the main path: a 96,287-site table and 360,000 150-bp reads through
      ``ntsm_tpu_torch.cli.main(["count", ...])``; counts.txt must be
      byte-identical to ``--engine golden``, the fused step's launch
-     counter must equal the number of batches, and the standalone K1 and
-     K4 must not launch
+     counter must equal the number of batches, and the standalone K1, K4
+     and K2 and the fused v1 step must not launch
   4. byte parity with the count fixtures in tests/fixtures
   5. the pair-statistics kernel against its plain version at 96,287 sites:
      a 256-row block of a 1,024-sample cohort (diagonal and off-diagonal
@@ -61,14 +61,19 @@ result; any failure raises and ends the run with a non-zero exit:
      engine; then the candidate-pair kernel alone on its candidate list as
      phase 9 runs it, the plain version on a sample that reaches every
      thread of both instances
- 12. K2 (the window hash from unpacked codes) against its plain version at
-     B = 32768, L = 256, k = 19, 31 and 32: random codes with 2% Ns and
-     ragged lengths in [0, L]; bit-exact, with CUDA-event times per batch
+ 12. K2 (the window hash from unpacked codes, on the window stage) against
+     its plain version at B = 32768, L = 256, k = 19, 31 and 32: random
+     codes with 2% Ns and ragged lengths in [0, L]; bit-exact, with device
+     times per batch
  13. the v1 path: ``run_count(..., version=1)`` on phase 3's sites and
      reads, one read a row; its counts.txt must be byte-identical to phase
-     3's golden text, K2's launch counter must equal the batch count and no
-     other count or eval kernel may launch; Mbase/s, and one batch split
-     between K2 and the plain bucket probe (CUDA events)
+     3's golden text, the fused v1 step's launch counter (window hash,
+     bucket probe and count in one kernel) must equal the batch count and
+     no other count or eval kernel may launch (K2 alone, K1, K4, the v3
+     step); Mbase/s; then on its first batch the fused v1 step against its
+     plain version (the whole counts vector, n_valid, n_found), timed
+     beside the plain version and the pair it replaced (K2, then the plain
+     bucket probe), and the plain probe split into its parts
  14. P1 and P2: the two gather programs as a user runs them
      (``python -m ntsm_tpu_torch.experiments.exp_pallas_gather[2]``): each
      of their six forms at the scripts' shapes and seed equal to its plain
@@ -82,10 +87,15 @@ result; any failure raises and ends the run with a non-zero exit:
      its -Xptxas pass): K1, K4, the two back to back and the fused step at
      phase 2's shape and at L = 4096 and 65536, each checked against its
      plain version, and the fused step without and with an L2
-     access-policy window; K1's and K4's
-     launches in the kernels line are this program's (the main path runs
-     the fused step instead)
-  then the card line, a kernels JSON line, and the last line
+     access-policy window; K2, K2 + the bucket probe and the fused v1 step
+     at L = 256, 4096 and 65536; K1's, K4's and K2's launches in the
+     kernels line are this program's (the paths run the fused steps
+     instead)
+  then, passed or failed, every process the run started that is still
+     there is stopped and reaped (the resource tracker of the spawn pools
+     of phases 6 and 10, and anything a child left behind: this process is
+     their subreaper), so that none outlives the run; then the card line, a
+     kernels JSON line, and the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Generated inputs go to a temporary directory under build/ (removed at the
@@ -401,11 +411,12 @@ def cli_count(args) -> str:
 def reset_launches() -> None:
     """Every kernel's launch counter to 0, just before a path is driven."""
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.eval import pair_kernel
     from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
-    kernel_v3.launches_step = 0
+    kernel_v3.launches_step = kernel_v1.launches_step = 0
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
@@ -416,6 +427,7 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     import torch
 
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.io.fastx import BatchReader
 
     sites, fq = os.path.join(work, "sites.fa"), os.path.join(work, "reads.fq")
@@ -436,7 +448,8 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     sec = time.monotonic() - t0
     launches = {"count_step": kernel_v3.launches_step}
     standalone = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
-                  "window_hash_codes": hash_kernel.launches_codes}
+                  "window_hash_codes": hash_kernel.launches_codes,
+                  "count_step_v1": kernel_v1.launches_step}
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
           "ntsm count launched an eval kernel")
@@ -1237,13 +1250,44 @@ def check_window_hash_codes(device, rng, k: int, card: str) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def v1_path(device, sites: str, fq: str, want: str, card: str) -> int:
-    """Phase 13: the v1 engine on phase 3's input; returns K2's launches."""
+def probe_split(h, valid, keys, vals, counts, n_kmers: int) -> dict:
+    """Device ms of each part of count/kernel.py:bucket_probe on one batch:
+    the two [B, W, 8] gathers, the match with its amin, the scatter-add of
+    every window (misses into the last slot) and of the found ones only."""
+    import torch
+
+    bucket = h & (keys.shape[0] - 1)
+    kg, vg = keys[bucket], vals[bucket]
+
+    def match():
+        m = kg == h[..., None]
+        found = m.any(dim=-1) & valid
+        return torch.where(found, torch.where(m, vg, n_kmers).amin(dim=-1), n_kmers)
+
+    idx = match().reshape(-1)
+    ones = torch.ones_like(idx, dtype=counts.dtype)
+    hit = idx[idx != n_kmers]
+    hit_ones = ones[: hit.numel()]
+    return {
+        "keys[bucket]": device_ms(lambda: keys[bucket]),
+        "vals[bucket]": device_ms(lambda: vals[bucket]),
+        "match + amin": device_ms(match),
+        "index_add_": device_ms(lambda: counts.index_add_(0, idx, ones)),
+        "index_add_ of the found only": device_ms(lambda: counts.index_add_(0, hit, hit_ones)),
+    }
+
+
+def v1_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
+    """Phase 13: the v1 engine on phase 3's input, then one of its batches
+    through the fused v1 step, the plain version and the pair it replaced;
+    returns (the fused step's launches, its kernels-line row)."""
     import torch
 
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.count.engine import run_count
     from ntsm_tpu_torch.count.kernel import bucket_probe, make_table_arrays
+    from ntsm_tpu_torch.count.kernel_v2 import window_hashes_codes_plain
     from ntsm_tpu_torch.eval import pair_kernel
     from ntsm_tpu_torch.io.countfile import format_counts
     from ntsm_tpu_torch.io.fastx import BatchReader
@@ -1251,41 +1295,79 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> int:
     from ntsm_tpu_torch.options import Options
 
     table = load_site_table(sites, K, allow_dupes=False)
-    n_batches = sum(1 for _ in BatchReader([fq], k=K, seglen=L, batch=B))
+    n, n_batches = table.n_kmers, sum(1 for _ in BatchReader([fq], k=K, seglen=L, batch=B))
     reset_launches()
     t0 = time.monotonic()
     res = run_count(table, [fq], Options(), device=device, version=1)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = hash_kernel.launches_codes
-    check(hash_kernel.launches == kernel_v3.launches == kernel_v3.launches_step == 0,
-          "the v1 engine launched window_hash, probe_count or count_step")
+    launches = kernel_v1.launches_step
+    others = {"window_hash_codes": hash_kernel.launches_codes, "window_hash": hash_kernel.launches,
+              "probe_count": kernel_v3.launches, "count_step": kernel_v3.launches_step}
+    check(not any(others.values()), f"the v1 engine launched another count kernel {others}")
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
           "the v1 engine launched an eval kernel")
     mx, sm = res.site_max_sum(table)
     got = format_counts(table.site_ids, mx, sm, table.distinct, res.total_kmers, K)
     check(got == want, "v1: counts.txt differs from phase 3's --engine golden")
-    check(launches == n_batches, f"window_hash_codes launched {launches} times for "
+    check(launches == n_batches, f"count_step_v1 launched {launches} times for "
           f"{n_batches} batches")
+    print(f"phase 13: run_count(version=1) on the card, {res.total_reads} reads in "
+          f"{n_batches} batches of {B} x {L} (one read a row): counts.txt byte-identical "
+          f"to golden; count_step_v1 launches {launches} = {n_batches} batches, no other "
+          f"kernel {others}; {sec:.2f} s (table build + batches), "
+          f"{res.total_bases / sec / 1e6:.2f} Mbase/s [{card}]", flush=True)
 
-    # one batch: K2, then the plain bucket probe
+    # one batch: the fused step against its plain version, then each timed
+    # beside the pair it replaced (K2, then the plain bucket probe)
     batch = next(iter(BatchReader([fq], k=K, seglen=L, batch=B)))
     codes = torch.from_numpy(batch.codes).to(device)
     lengths = torch.from_numpy(batch.lengths).to(device)
-    keys, vals = make_table_arrays(build_lookup(table.kmer_hashes), table.n_kmers, device)
-    scratch = torch.zeros(table.n_kmers + 1, dtype=torch.int32, device=device)
+    keys, vals = make_table_arrays(build_lookup(table.kmer_hashes), n, device)
+    c_k = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    c_p = torch.zeros_like(c_k)
+    t_k = kernel_v1.count_step(codes, lengths, keys, vals, c_k, k=K, n_kmers=n)
+    h_p, v_p = window_hashes_codes_plain(codes, lengths, K)
+    t_p = bucket_probe(h_p, v_p, keys, vals, c_p, n_kmers=n)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(c_k, c_p), max_abs_err(torch.stack(t_k).long(), torch.stack(t_p)))
+    n_valid, n_found = (int(t) for t in t_p)
+    check(err == 0.0, f"count_step_v1: counts/totals differ from plain ({[int(t) for t in t_k]} "
+          f"vs {[n_valid, n_found]})")
+    check(n_found > 0, "count_step_v1: no site k-mer found in the batch")
+    scratch = torch.zeros_like(c_k)
+    ms = device_ms(lambda: kernel_v1.count_step(codes, lengths, keys, vals, scratch, k=K,
+                                                n_kmers=n))
+
+    def plain():
+        h, v = window_hashes_codes_plain(codes, lengths, K)
+        bucket_probe(h, v, keys, vals, scratch, n_kmers=n)
+    plain_ms = device_ms(plain)
     k2_ms = device_ms(lambda: hash_kernel.window_hashes_codes(codes, lengths, K))
     h, valid = hash_kernel.window_hashes_codes(codes, lengths, K)
-    probe_ms = device_ms(lambda: bucket_probe(h, valid, keys, vals, scratch,
-                                            n_kmers=table.n_kmers))
-    print(f"phase 13: run_count(version=1) on the card, {res.total_reads} reads in "
-          f"{n_batches} batches of {B} x {L} (one read a row): counts.txt byte-identical "
-          f"to golden; window_hash_codes launches {launches} = {n_batches} batches, no "
-          f"other kernel; {sec:.2f} s (table build + batches), "
-          f"{res.total_bases / sec / 1e6:.2f} Mbase/s; one batch: K2 {k2_ms:.4f} ms, "
-          f"bucket probe (torch) {probe_ms:.4f} ms [{card}]", flush=True)
-    return launches
+    probe_ms = device_ms(lambda: bucket_probe(h, valid, keys, vals, scratch, n_kmers=n))
+    pair_ms = device_ms(lambda: bucket_probe(
+        *hash_kernel.window_hashes_codes(codes, lengths, K), keys, vals, scratch, n_kmers=n))
+    # bytes: the codes and lengths in, the key row of each distinct bucket a
+    # valid window reaches (read once), a value load and a count
+    # read-modify-write a hit, the miss slot; operations: the canonical min
+    # and hash64 of each valid window (~25 64-bit integer ones) and its
+    # verify (~10)
+    rows = int(torch.unique(h_p[v_p] & (keys.shape[0] - 1)).numel())
+    n_bytes = codes.nbytes + lengths.nbytes + rows * 64 + n_found * (4 + 8) + 8
+    b = bound(n_bytes, n_valid * 35 * 2, OPS32_PER_S)
+    print(f"phase 13: count_step_v1 on its first batch ({n_valid} valid windows, {n_found} "
+          f"found, {rows} distinct buckets of {keys.shape[0]}): counts, n_valid and n_found "
+          f"bit-exact vs plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the pair it "
+          f"replaced {pair_ms:.4f} ms (K2 {k2_ms:.4f}, bucket probe {probe_ms:.4f}), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {n_bytes / 1e6:.1f} MB) [{card}]",
+          flush=True)
+    split = probe_split(h, valid, keys, vals, scratch, n)
+    print("phase 13: the plain bucket probe of that batch, by part: "
+          + ", ".join(f"{name} {t:.4f} ms" for name, t in split.items()) + f" [{card}]",
+          flush=True)
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 # ---------------------------------------------------------------- phases 14-15
@@ -1369,8 +1451,9 @@ def count_kernels_program(device, work: str, card: str) -> tuple:
     (experiments/exp_count_kernels.py, without its -Xptxas pass): K1, K4,
     the two back to back and the fused step at k = 19, 31, 32 (L = 256)
     and at k = 19, L = 4096 and 65536, and the fused step without and with
-    an L2 window.  Returns K1's and K4's launches (the program's) and its
-    result."""
+    an L2 window; K2, K2 + the bucket probe and the fused v1 step at k =
+    19, L = 256, 4096 and 65536.  Returns K1's, K4's and K2's launches (the
+    program's) and its result."""
     import torch
 
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
@@ -1379,7 +1462,8 @@ def count_kernels_program(device, work: str, card: str) -> tuple:
     reset_launches()
     res, ok = exp_count_kernels.run(device, work, ptxas=False)
     torch.cuda.synchronize()
-    launches = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches}
+    launches = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
+                "window_hash_codes": hash_kernel.launches_codes}
     check(ok, "exp_count_kernels: a kernel differs from its plain version")
     check(all(launches.values()), f"exp_count_kernels launched {launches}")
     for row in res["cases"]:
@@ -1390,8 +1474,90 @@ def count_kernels_program(device, work: str, card: str) -> tuple:
               f"({l2['set_aside']} B set aside) off/on/on/off "
               f"{l2['off'][0]:.4f}/{l2['on'][0]:.4f}/{l2['on'][1]:.4f}/{l2['off'][1]:.4f} ms, "
               f"set up and reset in {l2['window_host_ms']:.3f} ms [{card}]", flush=True)
+    for row in res["v1"]:
+        print(f"phase 16: v1 k={row['k']} L={row['L']} B={row['B']}: K2 {min(row['k2']):.4f}, "
+              f"K2 + bucket probe {min(row['k2probe']):.4f}, fused v1 step "
+              f"{min(row['v1step']):.4f} ms [{card}]", flush=True)
     print(f"phase 16: exp_count_kernels: launches {launches}", flush=True)
     return launches, res
+
+
+# ---------------------------------------------------------------- processes
+
+
+def become_subreaper() -> bool:
+    """Make this process the parent of every process that one of its
+    children leaves behind (Linux prctl PR_SET_CHILD_SUBREAPER), so that
+    stop_children finds those too."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def child_pids() -> list:
+    """The pids of this process's children, running or exited (/proc)."""
+    me, pids = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            pids.append(int(name))
+    return pids
+
+
+def describe(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            cmd = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        return f"{pid} {cmd}" if cmd else f"{pid} (exited)"
+    except OSError:
+        return f"{pid} (gone)"
+
+
+def reaped(pid: int) -> bool:
+    try:
+        return os.waitpid(pid, os.WNOHANG)[0] == pid
+    except ChildProcessError:
+        return True
+
+
+def stop_children(grace_s: float = 5.0) -> list:
+    """Stop and reap every process this run started that is still there.
+    First the resource tracker that the spawn pools of phases 6 and 10
+    start: it outlives the pools, ignores SIGTERM and exits only once its
+    pipe is closed, which multiprocessing's own stop does.  Then any other
+    child, SIGTERM and after grace_s SIGKILL.  Returns those others, pid
+    and command line; the run leaves no process behind either way."""
+    import gc
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()  # the pools' semaphores, so that the tracker has nothing left to clean
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None and hasattr(tracker, "_stop"):
+        tracker._stop()
+    pids = child_pids()
+    left = [describe(pid) for pid in pids]
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + grace_s
+    while pids and time.monotonic() < deadline:
+        pids = [pid for pid in pids if not reaped(pid)]
+        time.sleep(0.05)
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+    return left
 
 
 # ---------------------------------------------------------------- main
@@ -1406,6 +1572,25 @@ def main() -> int:
         return 1
     card = card_line()
     print(card, flush=True)
+    subreaper = become_subreaper()
+    try:
+        kernels = run_phases(card)
+    finally:
+        left = stop_children()
+        print(f"end: processes of this run still there at its end, now stopped: "
+              f"{left or 'none'} (subreaper: {subreaper})", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(card: str) -> list:
+    """Phases 1-16; returns the kernels line's rows."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"phase 0: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}; "
@@ -1455,7 +1640,7 @@ def main() -> int:
                 block["tiles"][f"n3202_{key}"] = val
         block["sparse"]["n3202_ms"] = alone["sparse"]["ms"]
         hashes_codes = {k: check_window_hash_codes(device, rng, k, card) for k in (19, 31, 32)}
-        launches["window_hash_codes"] = v1_path(device, sites, fq, golden_text, card)
+        launches["count_step_v1"], step_v1 = v1_path(device, sites, fq, golden_text, card)
         gathers = {name: gather_program(device, name, card) for name in ("p1", "p2")}
         dma = dma_probe_program(device, card)
         standalone, _ = count_kernels_program(device, work, card)
@@ -1492,6 +1677,10 @@ def main() -> int:
              source="ntsm_tpu_torch/csrc/window_hash.cu",
              replaces="ntsm_tpu/count/pallas_kernel.py:148",
              launches=launches["window_hash_codes"], **hashes_codes[K]),
+        dict(name="count_step_v1", route="cuda",
+             source="ntsm_tpu_torch/csrc/hash_bucket_count.cu",
+             replaces="ntsm_tpu/count/pallas_kernel.py:148 + ntsm_tpu/count/kernel.py:52",
+             launches=launches["count_step_v1"], **step_v1),
         dict(name="gather_p1", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
              replaces="scripts/exp_pallas_gather.py:10", **gathers["p1"]),
         dict(name="gather_p2", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
@@ -1499,12 +1688,7 @@ def main() -> int:
         dict(name="dma_probe", route="cuda", source="ntsm_tpu_torch/csrc/dma_probe.cu",
              replaces="scripts/exp_dma_probe.py:53", **dma),
     ]
-    print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 
 :func:`run_count` runs the v3 engine by default (run_count_v3 there): a
 host feed thread and the fused count kernel, described below.  With
-``version=1`` it runs :func:`run_count_v1`, the unpacked-codes engine (K2
-and the plain bucket probe of count/kernel.py); the v2 engine is not yet
-ported.
+``version=1`` it runs :func:`run_count_v1`, the unpacked-codes engine (the
+fused v1 count step of count/kernel.py: window hash, bucket probe and
+count in one kernel); the v2 engine is not yet ported.
 
 The v3 engine:
 
@@ -308,10 +308,11 @@ def run_count_v1(
     """The v1 engine (ntsm_tpu/count/engine.py:run_count_v1): one read
     segment a row, each batch uploaded as [B, L] u8 codes and [B] int32
     lengths (pinned, non-blocking on the card) and counted by
-    count/kernel.py:count_step on PyTorch's current stream.  The counts and
-    both totals stay on the device; -m is checked every
-    early_term_check_every batches, so a -m run stops on the same batch as
-    the JAX v1 engine.  No checkpoint; -t is ignored, as in the JAX v1."""
+    count/kernel.py:count_step (one kernel launch a batch) on PyTorch's
+    current stream.  The counts and both totals stay on the device; -m is
+    checked every early_term_check_every batches, so a -m run stops on the
+    same batch as the JAX v1 engine.  No checkpoint; -t is ignored, as in
+    the JAX v1."""
     device = torch.device(device)
     config = config or EngineConfig(
         batch_reads=opts.batch_reads, segment_len=opts.segment_len

@@ -6,9 +6,11 @@
   is also the first half of the fused count step
   (count/kernel_v3.py:count_step_v3), which the v3 engine
   (count/engine.py:run_count) launches in its place.
-* K2, :func:`window_hashes_codes`, from unpacked u8 codes and row lengths:
-  the v1 engine's (count/kernel.py:count_step); plain version
-  kernel_v2.window_hashes_codes_plain.
+* K2, :func:`window_hashes_codes`, from unpacked u8 codes and row lengths;
+  plain version kernel_v2.window_hashes_codes_plain.  The same stage, from
+  its code decoder, is the first half of the fused v1 count step
+  (count/kernel.py:count_step), which the v1 engine
+  (count/engine.py:run_count_v1) launches in its place.
 
 For CPU tensors each wrapper runs its plain PyTorch version; for CUDA
 tensors it launches its kernel or raises — it never falls back.
@@ -82,7 +84,10 @@ def window_hashes(packed: torch.Tensor, vbits: torch.Tensor, k: int, L: int):
     return h, valid
 
 
-def _check_codes(codes: torch.Tensor, lengths: torch.Tensor, k: int) -> None:
+def check_codes(codes: torch.Tensor, lengths: torch.Tensor, k: int) -> None:
+    """The checks of a code batch [B, L] + [B] (K2 and the fused v1 count
+    step): uint8 codes with contiguous rows, int32 contiguous lengths, one
+    row count and device, 1 <= k <= 32 and k <= L."""
     if codes.dtype != torch.uint8:
         raise TypeError(f"codes must be uint8, got {codes.dtype}")
     if codes.dim() != 2 or codes.stride(1) != 1:
@@ -101,7 +106,7 @@ def window_hashes_codes(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     uint8 code batch with [B] int32 row lengths (K2); a base is bad when its
     code is > 3 or its position is >= its row's length."""
     global launches_codes
-    _check_codes(codes, lengths, k)
+    check_codes(codes, lengths, k)
     if codes.device.type == "cpu":
         return window_hashes_codes_plain(codes, lengths, k)
     if codes.device.type != "cuda":

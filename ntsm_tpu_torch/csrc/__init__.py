@@ -6,9 +6,10 @@ once, links them into ``build/ntsm_tpu_torch/libntsm_kernels.so`` (a
 few seconds; nothing here includes PyTorch's headers) and binds the entry
 points with ctypes.  Each entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; the wrappers (``ntsm_tpu_torch.count.hash_kernel``,
-which ``count.kernel``'s v1 step calls, ``count.kernel_v3``, whose fused
-count step the v3 engine calls, ``eval.pair_kernel``, ``experiments.gather``,
-``experiments.exp_dma_probe`` and ``experiments.exp_count_kernels``) raise on
+``count.kernel``, whose fused v1 count step the v1 engine calls,
+``count.kernel_v3``, whose fused count step the v3 engine calls,
+``eval.pair_kernel``, ``experiments.gather``, ``experiments.exp_dma_probe``
+and ``experiments.exp_count_kernels``) raise on
 a non-zero code.
 Nothing is compiled when this module is imported, so the CPU tests import
 it freely.
@@ -119,6 +120,8 @@ def load():
         lib.ntsm_probe_count.argtypes = [P, P, L, P, P, P, L, I, P, P, P]
         lib.ntsm_count_step.restype = I
         lib.ntsm_count_step.argtypes = [P, L, P, L, I, I, I, P, P, P, L, I, P, P, P]
+        lib.ntsm_count_step_v1.restype = I
+        lib.ntsm_count_step_v1.argtypes = [P, L, P, I, I, I, P, P, L, I, P, P, P]
         lib.ntsm_l2_window.restype = I
         lib.ntsm_l2_window.argtypes = [P, L, P, P]
         lib.ntsm_pair_stats.restype = I

@@ -1,6 +1,7 @@
 // Shared helpers of the port's kernels: the k-mer hash and the site-table
 // probe step of the count path (window_hash.cu, probe_count.cu,
-// hash_probe_count.cu), and the grid cap every grid-stride kernel uses.
+// hash_probe_count.cu, hash_bucket_count.cu), and the grid cap every
+// grid-stride kernel uses.
 #pragma once
 
 #include <cstdint>
@@ -42,10 +43,11 @@ inline unsigned int ntsm_grid(long n, int threads) {
     return static_cast<unsigned int>(blocks < 1 ? 1 : blocks);
 }
 
-// ---- the probe step (K4, csrc/probe_count.cu, and the fused count step,
-// csrc/hash_probe_count.cu) ----
+// ---- the probe step (K4, csrc/probe_count.cu, and the fused count steps,
+// csrc/hash_probe_count.cu and csrc/hash_bucket_count.cu) ----
 //
-// Table planes (count/kernel_v3.TableV3): n_buckets rows of 8 slots,
+// Table planes (count/kernel_v3.TableV3; the v1 table of io/sites.build_lookup
+// is the same keys and vals, without fp): n_buckets rows of 8 slots,
 //   fp   [n_buckets, 8] u8   fingerprint, 0 = empty slot
 //   keys [n_buckets, 8] i64  the uint64 hash's bits, -1 = empty slot
 //   vals [n_buckets, 8] i32  k-mer index (n_kmers = empty slot)
@@ -100,22 +102,42 @@ struct ProbeTable {
     }
 };
 
-// diag[0..2] += the block's (n_valid, n_cand, n_hits): a warp sum, one
+// Verify a warp's n queued candidate hashes, one a lane (the fused count
+// steps' queues in shared memory).
+__device__ __forceinline__ void ntsm_verify_queue(const ProbeTable& table, const uint64_t* queue,
+                                                  int n, int lane, int& n_hits) {
+    __syncwarp();  // every lane's pushes are in
+    for (int i = lane; i < n; i += 32) {
+        const uint64_t h = queue[i];
+        table.verify(h, table.bucket(h), n_hits);
+    }
+    __syncwarp();  // every lane has read its entries
+}
+
+// *d0 += the block's sum of v0, *d1 of v1, *d2 of v2: a warp sum, one
 // shared atomic a warp, one global atomic a block.  Every thread of the
-// block calls it once, at the end.  Integer sums, so order-free.
-__device__ __forceinline__ void ntsm_diag_add(int32_t* diag, int n_valid, int n_cand,
-                                              int n_hits) {
-    __shared__ int block_diag[3];
-    if (threadIdx.x < 3) block_diag[threadIdx.x] = 0;
+// block calls it once, at the end.  Integer sums (wrapping as int32), so
+// order-free.
+__device__ __forceinline__ void ntsm_block_add(int32_t* d0, int32_t* d1, int32_t* d2, int v0,
+                                               int v1, int v2) {
+    __shared__ int block_sum[3];
+    if (threadIdx.x < 3) block_sum[threadIdx.x] = 0;
     __syncthreads();
-    n_valid = __reduce_add_sync(0xFFFFFFFFu, n_valid);
-    n_cand = __reduce_add_sync(0xFFFFFFFFu, n_cand);
-    n_hits = __reduce_add_sync(0xFFFFFFFFu, n_hits);
+    v0 = __reduce_add_sync(0xFFFFFFFFu, v0);
+    v1 = __reduce_add_sync(0xFFFFFFFFu, v1);
+    v2 = __reduce_add_sync(0xFFFFFFFFu, v2);
     if ((threadIdx.x & 31) == 0) {
-        atomicAdd(&block_diag[0], n_valid);
-        atomicAdd(&block_diag[1], n_cand);
-        atomicAdd(&block_diag[2], n_hits);
+        atomicAdd(&block_sum[0], v0);
+        atomicAdd(&block_sum[1], v1);
+        atomicAdd(&block_sum[2], v2);
     }
     __syncthreads();
-    if (threadIdx.x < 3) atomicAdd(&diag[threadIdx.x], block_diag[threadIdx.x]);
+    if (threadIdx.x < 3) atomicAdd(threadIdx.x == 0 ? d0 : threadIdx.x == 1 ? d1 : d2,
+                                   block_sum[threadIdx.x]);
+}
+
+// diag[0..2] += the block's (n_valid, n_cand, n_hits).
+__device__ __forceinline__ void ntsm_diag_add(int32_t* diag, int n_valid, int n_cand,
+                                              int n_hits) {
+    ntsm_block_add(diag, diag + 1, diag + 2, n_valid, n_cand, n_hits);
 }

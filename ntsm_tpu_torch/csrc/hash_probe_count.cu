@@ -56,17 +56,6 @@ constexpr int kWindows = 4;  // windows a lane hashes before it tests any
 constexpr int kQueue = 256;  // candidate hashes a warp holds before it verifies them
 constexpr int kQueueBytes = kQueue * 8;
 
-// Verify the warp's n queued candidates, one a lane.
-__device__ __forceinline__ void verify_queue(const ProbeTable& table, const uint64_t* queue,
-                                             int n, int lane, int& n_hits) {
-    __syncwarp();  // every lane's pushes are in
-    for (int i = lane; i < n; i += 32) {
-        const uint64_t h = queue[i];
-        table.verify(h, table.bucket(h), n_hits);
-    }
-    __syncwarp();  // every lane has read its entries
-}
-
 __global__ void __launch_bounds__(kStageRows * 32, 4)
 count_step_kernel(PackedBatch in, int k, ProbeTable table, int32_t* __restrict__ diag) {
     extern __shared__ uint64_t stage_smem[];
@@ -85,7 +74,7 @@ count_step_kernel(PackedBatch in, int k, ProbeTable table, int32_t* __restrict__
                     [&](long, int w_begin, int w_end) {
         for (int w0 = w_begin + lane; w0 - lane < w_end; w0 += 32 * kWindows) {
             if (queued > kQueue - 32 * kWindows) {
-                verify_queue(table, queue, queued, lane, n_hits);
+                ntsm_verify_queue(table, queue, queued, lane, n_hits);
                 queued = 0;
             }
             uint64_t h[kWindows], row[kWindows];
@@ -110,7 +99,7 @@ count_step_kernel(PackedBatch in, int k, ProbeTable table, int32_t* __restrict__
             }
         }
     });
-    verify_queue(table, queue, queued, lane, n_hits);
+    ntsm_verify_queue(table, queue, queued, lane, n_hits);
     ntsm_diag_add(diag, n_valid, n_cand, n_hits);
 }
 

@@ -4,14 +4,16 @@
 //   K1, ntsm_window_hash: a 2-bit packed batch (the v3 engine's upload).
 //       Replaces the Pallas kernel ntsm_tpu/count/pallas_kernel.py:
 //       _window_hash_kernel_packed (and its XLA twin count/kernel_v2.py:
-//       _window_hashes_from).  The v3 engine no longer launches it: it runs
-//       the fused count step (hash_probe_count.cu), which shares K1's window
-//       stage (window_stage.cuh).  K1 stays for the stage's tests and
-//       chip_smoke.py / experiments/exp_count_kernels.py.
+//       _window_hashes_from).
 //   K2, ntsm_window_hash_codes: unpacked u8 codes plus row lengths (the v1
 //       engine's upload).  Replaces the Pallas kernel
 //       ntsm_tpu/count/pallas_kernel.py:_window_hash_kernel (and its XLA
 //       twin count/kernel.py:window_hashes).
+// No engine launches either: the v3 engine runs the fused count step
+// (hash_probe_count.cu), the v1 engine the fused v1 count step
+// (hash_bucket_count.cu), which share these kernels' window stage
+// (window_stage.cuh).  K1 and K2 stay for the stage's tests and
+// chip_smoke.py / experiments/exp_count_kernels.py.
 //
 // K1 input, per row b (the block layout of kernel_v2.pack_batch):
 //   packed[b, j]  holds bases j, j+L/4, j+L/2, j+3L/4 at bit pairs 0/2/4/6,
@@ -30,14 +32,15 @@
 // k = 19; 7.8M windows) K1 reads 3 MB and K2 8.5 MB, and both write 70 MB
 // (8 B of hash and 1 B of validity per window), which the published
 // 3.35 TB/s moves in 21-24 us.  Rebuilding each window from its k bases
-// (~20 integer instructions a base), as K2 still does, K1 took 0.265 ms a
-// batch, and without its stores the same (NVIDIA H100 80GB HBM3, 700.00 W;
-// PERF.md): instruction issue bound it.  K1 now stages each row once in shared
-// memory (window_stage.cuh: one warp a piece of up to 2,080 bases, decoded
-// into linear forward, reverse-complement and validity words) and takes
-// each window from three words; lane t writes window t of its warp's
-// piece, so the stores are coalesced.  K2 keeps the per-window loop below
-// (one thread a window, its k bases walked through a cursor).
+// (~20 integer instructions a base), K1 took 0.265 ms a batch, and without
+// its stores the same, and K2 0.138 ms (NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md): instruction issue bound them.  Both now stage each row once in
+// shared memory (window_stage.cuh: one warp a piece of up to 2,080 bases,
+// decoded into linear forward, reverse-complement and validity words) and
+// take each window from three words; lane t writes window t of its warp's
+// piece, so the stores are coalesced.  K2 stages whole rows (no clip to the
+// read), so its h at an invalid window is the hash of the row's codes & 3
+// there, as the plain version's.
 
 #include <cstdint>
 
@@ -48,71 +51,10 @@
 
 namespace {
 
-// K2's base fetch: one code byte a base; the read ends at its row's length.
-struct CodeRows {
-    const uint8_t* codes;
-    long pitch;
-    const int* lengths;
-
-    struct Cursor {
-        const uint8_t* p;
-        int left;  // bases of the read from this one on
-
-        __device__ __forceinline__ void next(uint64_t& c, unsigned& good) {
-            const unsigned v = *p++;
-            c = v & 3u;
-            good = static_cast<unsigned>(v <= 3u && left > 0);
-            --left;
-        }
-    };
-
-    __device__ __forceinline__ Cursor at(long b, int w) const {
-        return Cursor{codes + b * pitch + w, lengths[b] - w};
-    }
-};
-
-template <class Rows>
-__global__ void window_hash_kernel(Rows rows, int B, int L, int k,
-                                   int64_t* __restrict__ h_out,
-                                   uint8_t* __restrict__ valid_out) {
-    const int W = L - k + 1;
-    const long total = static_cast<long>(B) * W;
-    const uint64_t mask = (k == 32) ? ~0ULL : ((1ULL << (2 * k)) - 1);
-    for (long t = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
-         t < total; t += static_cast<long>(gridDim.x) * blockDim.x) {
-        const long b = t / W;
-        const int w = static_cast<int>(t - b * W);
-        auto cur = rows.at(b, w);
-        uint64_t fw = 0, rv = 0;
-        unsigned ok = 1;
-        for (int j = 0; j < k; ++j) {
-            uint64_t c;
-            unsigned good;
-            cur.next(c, good);
-            ok &= good;
-            fw = (fw << 2) | c;
-            rv |= (3ULL ^ c) << (2 * j);
-        }
-        h_out[t] = static_cast<int64_t>(ntsm_hash64(fw < rv ? fw : rv, mask));
-        valid_out[t] = static_cast<uint8_t>(ok);
-    }
-}
-
-template <class Rows>
-int launch(const Rows& rows, int B, int L, int k, void* h_out, void* valid_out,
-           void* stream) {
-    const int threads = 256;
-    const long total = static_cast<long>(B) * (L - k + 1);
-    window_hash_kernel<<<ntsm_grid(total, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        rows, B, L, k, static_cast<int64_t*>(h_out),
-        static_cast<uint8_t*>(valid_out));
-    return static_cast<int>(cudaGetLastError());
-}
-
-// K1: one warp a piece of a row, staged once; lane t takes windows
-// w_begin + t, w_begin + t + 32, ...
-__global__ void stage_hash_kernel(PackedBatch in, int k, int64_t* __restrict__ h_out,
+// One warp a piece of a row, staged once; lane t takes windows w_begin +
+// t, w_begin + t + 32, ...
+template <class Batch>
+__global__ void stage_hash_kernel(Batch in, int k, int64_t* __restrict__ h_out,
                                   uint8_t* __restrict__ valid_out) {
     extern __shared__ uint64_t stage_smem[];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -132,27 +74,31 @@ __global__ void stage_hash_kernel(PackedBatch in, int k, int64_t* __restrict__ h
     });
 }
 
+template <class Batch>
+int launch(const Batch& in, int k, void* h_out, void* valid_out, void* stream) {
+    const StageLaunch cfg = ntsm_stage_launch(in.B, in.L);
+    stage_hash_kernel<<<cfg.grid, kStageRows * 32, cfg.smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        in, k, static_cast<int64_t*>(h_out), static_cast<uint8_t*>(valid_out));
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ntsm_window_hash(const void* packed, long packed_pitch,
                                 const void* vbits, long vbits_pitch, int B,
                                 int L, int k, void* h_out, void* valid_out,
                                 void* stream) {
-    const StageLaunch launch = ntsm_stage_launch(B, L);
-    stage_hash_kernel<<<launch.grid, kStageRows * 32, launch.smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        ntsm_packed_batch(packed, packed_pitch, vbits, vbits_pitch, B, L), k,
-        static_cast<int64_t*>(h_out), static_cast<uint8_t*>(valid_out));
-    return static_cast<int>(cudaGetLastError());
+    return launch(ntsm_packed_batch(packed, packed_pitch, vbits, vbits_pitch, B, L), k,
+                  h_out, valid_out, stream);
 }
 
 extern "C" int ntsm_window_hash_codes(const void* codes, long pitch,
                                       const void* lengths, int B, int L, int k,
                                       void* h_out, void* valid_out,
                                       void* stream) {
-    const CodeRows rows{static_cast<const uint8_t*>(codes), pitch,
-                        static_cast<const int*>(lengths)};
-    return launch(rows, B, L, k, h_out, valid_out, stream);
+    return launch(ntsm_code_batch(codes, pitch, lengths, B, L, false), k, h_out, valid_out,
+                  stream);
 }
 
 extern "C" const char* ntsm_cuda_error_string(int code) {

@@ -23,14 +23,27 @@ probe finds real hits:
   window over the fingerprint plane (:func:`fingerprints_in_l2`), in
   turns: off, on, on, off.  The engine does not set the window.
 
-K1's output must equal its plain version's, and K4's and the fused step's
-counts and diag the plain probe's (exit 1 otherwise).  Times are device
-times (``utils/timing.py:device_ms``), two rounds of 20 calls.  Also
+and the v1 path's kernels at L = 256, 4096 and 65536 (k = 19, the same
+batch sizes), on a batch of unpacked codes (:func:`codes_batch`: one read
+a row, as the v1 engine uploads it) and a lookup table
+(``io/sites.build_lookup``) of the same size and make-up:
+
+* ``k2``: the window hash from codes alone
+  (``count/hash_kernel.py:window_hashes_codes``, csrc/window_hash.cu);
+* ``k2probe``: K2 then the plain bucket probe (``count/kernel.py:
+  bucket_probe``), the v1 step before the fused kernel;
+* ``v1step``: the fused v1 count step (``count/kernel.py:count_step``,
+  csrc/hash_bucket_count.cu), which the v1 engine runs.
+
+K1's and K2's output must equal their plain versions', and K4's and the
+fused steps' counts and diag the plain probe's (exit 1 otherwise).  Times
+are device times (``utils/timing.py:device_ms``), two rounds of 20 calls.  Also
 compiles the count kernels' sources with ``-Xptxas -v`` (registers,
 spills) into OUT_DIR (default ``build/exp_count_kernels``), with a JSON of
 the times.  Run from the root of a checkout whose package has no fused
-step (before it existed), it times K1, K4 and K1 + K4 alone, so that the
-two designs can be compared in one call.  Exits 1 with no CUDA device.
+step (before it existed), it times K1, K4 and K1 + K4 alone, and without
+the fused v1 step, K2 and K2 + the bucket probe, so that the designs can
+be compared in one call.  Exits 1 with no CUDA device.
 """
 
 from __future__ import annotations
@@ -48,14 +61,18 @@ import torch
 
 from ntsm_tpu_torch import csrc
 from ntsm_tpu_torch.count import hash_kernel, kernel_v3
-from ntsm_tpu_torch.count.kernel_v2 import pack_batch_fast, window_hashes_packed
+from ntsm_tpu_torch.count import kernel as kernel_v1
+from ntsm_tpu_torch.count.kernel_v2 import (
+    pack_batch_fast, window_hashes_codes_plain, window_hashes_packed)
+from ntsm_tpu_torch.io.sites import build_lookup
 from ntsm_tpu_torch.utils.timing import card_line, device_ms
 
 B, L = 32768, 256
 CASES = ((19, 256), (31, 256), (32, 256), (19, 4096), (19, 65536))  # (k, L)
+V1_CASES = ((19, 256), (19, 4096), (19, 65536))  # (k, L) of the v1 path
 N_TABLE = 96_287 * 26  # phase 2's table: the human site set's k-mers
 N_REAL = 250_000  # distinct k-mers of the batch among them
-COUNT_SOURCES = ("window_hash", "probe_count", "hash_probe_count")
+COUNT_SOURCES = ("window_hash", "probe_count", "hash_probe_count", "hash_bucket_count")
 
 
 def fused_batch(device, rng, k: int, rows: int = B, seglen: int = L) -> torch.Tensor:
@@ -68,6 +85,17 @@ def fused_batch(device, rng, k: int, rows: int = B, seglen: int = L) -> torch.Te
     codes[np.arange(seglen)[None, :] >= ends[:, None]] = 4
     packed, vbits = pack_batch_fast(codes)
     return torch.from_numpy(np.concatenate([packed, vbits], axis=1)).to(device)
+
+
+def codes_batch(device, rng, k: int, rows: int = B, seglen: int = L):
+    """(codes [rows, seglen] u8, lengths [rows] int32) on `device`: one
+    random read a row (2% N, lengths uniform in [k, seglen]), code 4 past
+    its end, as the v1 engine uploads a batch."""
+    codes = rng.integers(0, 4, size=(rows, seglen), dtype=np.uint8)
+    codes[rng.random((rows, seglen)) < 0.02] = 4
+    lengths = rng.integers(k, seglen + 1, size=rows).astype(np.int32)
+    codes[np.arange(seglen)[None, :] >= lengths[:, None]] = 4
+    return torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device)
 
 
 def split(fused: torch.Tensor, seglen: int = L):
@@ -167,6 +195,48 @@ def l2_turns(step, tab) -> dict:
     return out
 
 
+def run_v1(device, rng, card: str):
+    """(rows, ok): K2, K2 + the bucket probe and the fused v1 step (where
+    the package has it) at V1_CASES, each checked against its plain
+    version."""
+    has_step = hasattr(kernel_v1, "launches_step")  # not before the fused v1 step
+    same = lambda x: "equal to" if x else "DIFFERS from"  # noqa: E731
+    rows, ok = [], True
+    for k, seglen in V1_CASES:
+        n_rows = B * L // seglen
+        codes, lengths = codes_batch(device, rng, k, rows=n_rows, seglen=seglen)
+        h, valid = hash_kernel.window_hashes_codes(codes, lengths, k)
+        hp, vp = window_hashes_codes_plain(codes, lengths, k)
+        same_k2 = torch.equal(valid, vp) and torch.equal(h[valid], hp[vp])
+        hashes = real_table(h, valid, rng)
+        n = int(hashes.size)
+        keys, vals = kernel_v1.make_table_arrays(build_lookup(hashes), n, device)
+        c_p = torch.zeros(n + 1, dtype=torch.int32, device=device)
+        t_p = kernel_v1.bucket_probe(hp, vp, keys, vals, c_p, n_kmers=n)
+        ok &= same_k2
+        checks = f"K2 {same(same_k2)} plain"
+        scratch = torch.zeros_like(c_p)
+        row = dict(k=k, L=seglen, B=n_rows, totals=[int(t) for t in t_p], table=n,
+                   n_buckets=int(keys.shape[0]))
+        row["k2"] = rounds(lambda: hash_kernel.window_hashes_codes(codes, lengths, k))
+        row["k2probe"] = rounds(lambda: kernel_v1.bucket_probe(
+            *hash_kernel.window_hashes_codes(codes, lengths, k), keys, vals, scratch, n_kmers=n))
+        if has_step:
+            c_s = torch.zeros_like(c_p)
+            t_s = kernel_v1.count_step(codes, lengths, keys, vals, c_s, k=k, n_kmers=n)
+            same_step = torch.equal(c_s, c_p) and [int(t) for t in t_s] == row["totals"]
+            ok &= same_step
+            checks += f", v1 step {same(same_step)} plain"
+            row["v1step"] = rounds(lambda: kernel_v1.count_step(
+                codes, lengths, keys, vals, scratch, k=k, n_kmers=n))
+        times = "; ".join(f"{key} {row[key][0]:.4f} / {row[key][1]:.4f} ms"
+                          for key in ("k2", "k2probe", "v1step") if key in row)
+        print(f"v1 k={k} L={seglen} B={n_rows}: n_valid, n_found {row['totals']} (table {n}, "
+              f"{row['n_buckets']} buckets); {checks}; {times} [{card}]", flush=True)
+        rows.append(row)
+    return rows, ok
+
+
 def run(device, out_dir: str, ptxas: bool = True):
     """(result, ok): every measurement at CASES; -Xptxas -v of the count
     sources first when `ptxas`."""
@@ -226,6 +296,8 @@ def run(device, out_dir: str, ptxas: bool = True):
                   f"up and reset on the host in {l2['window_host_ms']:.3f} ms [{card}]",
                   flush=True)
         result["cases"].append(row)
+    result["v1"], ok_v1 = run_v1(device, rng, card)
+    ok &= ok_v1
     with open(os.path.join(out_dir, "count_kernels.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     return result, ok

@@ -2,6 +2,7 @@
 --device cpu, the JAX CLI's error texts, no silent move to the CPU, no jax
 import, and chip_smoke.py refusing to run without a card."""
 
+import json
 import os
 import pathlib
 import shutil
@@ -156,3 +157,48 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+STOP_CHILDREN_SCRIPT = """
+import json, multiprocessing, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+
+
+def square(x):
+    return x * x
+
+
+def phase():
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.map(square, [3])
+
+
+if __name__ == "__main__":
+    subreaper = chip_smoke.become_subreaper()
+    assert phase() == [9]
+    subprocess.run(["sh", "-c", "sleep 60 & echo $!"], check=True, stdout=sys.stderr)
+    tracker = multiprocessing.resource_tracker._resource_tracker._pid
+    left = chip_smoke.stop_children()
+    print(json.dumps(dict(subreaper=subreaper, tracker=tracker, left=left,
+                          children=chip_smoke.child_pids())))
+"""
+
+
+def test_chip_smoke_stops_what_it_started(tmp_path):
+    """chip_smoke.stop_children ends the spawn pool's resource tracker (it
+    outlives the pool and ignores SIGTERM) and an orphan of a child (this
+    process is its subreaper), and reaps both: nothing outlives the run."""
+    script = tmp_path / "run.py"
+    script.write_text(STOP_CHILDREN_SCRIPT)
+    res = subprocess.run([sys.executable, str(script), str(ROOT)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    orphan = int(res.stderr.split()[0])
+    assert out["subreaper"] and out["tracker"] is not None
+    assert not os.path.exists(f"/proc/{out['tracker']}")
+    assert [x.split(" ", 1) for x in out["left"]] == [[str(orphan), "sleep 60"]]
+    assert not os.path.exists(f"/proc/{orphan}")
+    assert out["children"] == []
+    assert "leaked" not in res.stderr

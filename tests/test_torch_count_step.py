@@ -15,6 +15,14 @@ runs (csrc/window_stage.cuh) against the plain window hash.
     kernel_v2.window_hashes_packed at every window, at shift edges (k = 32,
     w % 16 = 0, the last word), at L % 32 != 0 and at piece edges.
 (c) The wrapper's checks, and no launch on the CPU.
+(d) ``code_stage_piece`` and ``code_stage_clip`` restate the stage's code
+    decoder (csrc/window_stage.cuh: CodeBatch, which K2 and the fused v1
+    step stage): the byte decode with its length cut, the 8-byte fast
+    path's conditions, the rounding of a piece to 8 bases at L % 8 != 0,
+    and the v1 step's clip of each piece to its read; through the same
+    window extraction they must equal kernel_v2.window_hashes_codes_plain
+    (K2: every window, h included; the v1 step: every valid window, and
+    no valid window is left out).
 All comparisons are exact."""
 
 import numpy as np
@@ -26,7 +34,8 @@ import jax.numpy as jnp
 from ntsm_tpu.count import kernel_v3 as jax_v3
 from ntsm_tpu_torch.core.hash import hash64_np, kmer_mask
 from ntsm_tpu_torch.count import kernel_v3 as torch_v3
-from ntsm_tpu_torch.count.kernel_v2 import pack_batch, window_hashes_packed
+from ntsm_tpu_torch.count.kernel_v2 import (
+    pack_batch, window_hashes_codes_plain, window_hashes_packed)
 from tests.test_torch_probe import _planted_world
 
 torch.set_num_threads(1)
@@ -225,6 +234,146 @@ def test_stage_model_layout():
     assert int(good[0]) == 0xFFFFFFFF and int(good[1]) == 0xFF
     assert int(fw[3]) == int(rc[3]) == int(good[2]) == 0
     assert not fw[4:].any() and not rc[3:].any()
+
+
+# ---- (d) the window stage from codes, restated ----
+
+
+def code_stage_clip(length: int, s: int, k: int, n: int, w_end: int):
+    """CodeBatch::clip with clip_reads (the fused v1 step): the piece at s
+    staging n bases and serving windows [s, w_end) cut to its read; None
+    when it serves no window."""
+    n = min(n, length - s)
+    w_end = min(w_end, length - k + 1)
+    return (n, w_end) if w_end > s else None
+
+
+def code_stage_piece(row: bytes, length: int, s: int, n: int, runs: bool):
+    """(fw [2 NW] u32, rc [2 NW] u32, good [NW] u32, n8) of bases [s, s +
+    n) of one code row, as WindowStage::load builds them through
+    CodeBatch::Row::chunk: n rounded up to n8, a multiple of 8; the bases
+    before s + n read, the others zero; `runs` (base pointer and pitch
+    8-byte aligned): a chunk wholly before s + n is one 8-byte load; a base
+    is good when its code is <= 3 and it lies before min(length, s + n)."""
+    n8 = (n + 7) // 8 * 8
+    nc, end = n8 // 8, s + n
+    slots = 4 * stage_words(n8)
+    fw16 = np.zeros(slots, dtype="<u2")
+    rc16 = np.zeros(slots, dtype="<u2")
+    good8 = np.zeros(slots, dtype=np.uint8)
+    for c in range(nc):
+        m = s + 8 * c
+        left = min(length, end) - m  # bases inside the read from m on
+        if runs and m + 8 <= end:
+            x = int.from_bytes(row[m : m + 8], "little")
+        else:
+            x = sum(row[m + t] << (8 * t) for t in range(8) if m + t < end)
+        f = r = g = 0
+        for t in range(8):
+            v = (x >> (8 * t)) & 0xFF
+            code = v & 3
+            f = (f << 2) | code
+            r |= (3 ^ code) << (2 * t)
+            g |= int(v <= 3) << t
+        g &= 0xFF if left >= 8 else 0 if left <= 0 else (1 << left) - 1
+        fw16[c ^ 1] = f
+        rc16[(nc - 1 - c) ^ 1] = r
+        good8[c] = g
+    return fw16.view("<u4"), rc16.view("<u4"), good8.view("<u4"), n8
+
+
+def _code_rows(k: int, L: int, offset: int):
+    """A batch of code rows as views of a wider buffer at `offset` (so the
+    rows' alignment and pitch vary): random bases, 2% Ns and codes 4-255,
+    and lengths 0, k - 1, mid-row, L - 1, L and L + 5 (past the row)."""
+    rng = np.random.default_rng(100 * k + L + offset)
+    lengths = np.array([0, k - 1, (L + k) // 2, L - 1, L, L + 5, L, L], dtype=np.int32)
+    B = lengths.size
+    wide = rng.integers(0, 4, size=(B, L + 16), dtype=np.uint8)
+    bad = rng.random(wide.shape) < 0.02
+    wide[bad] = rng.integers(4, 256, size=int(bad.sum()), dtype=np.uint8)
+    wide[6, : min(L, 40) + offset] = 3  # a run of T (its reverse complement A)
+    codes = torch.from_numpy(wide)[:, offset : offset + L]
+    return codes, torch.from_numpy(lengths)
+
+
+def _code_stage_model_rows(k: int, L: int, piece: int, offset: int = 0):
+    """Every row through the model's pieces, as K2 stages them (whole) and
+    as the v1 step does (clipped to the read), against
+    window_hashes_codes_plain, by the byte path and, where the rows allow
+    it, the 8-byte path; returns the pieces."""
+    codes, lengths = _code_rows(k, L, offset)
+    h_p, v_p = window_hashes_codes_plain(codes, lengths, k)
+    h_p, v_p = h_p.numpy().view(np.uint64), v_p.numpy()
+    aligned = (codes.data_ptr() | codes.stride(0)) % 8 == 0
+    pieces = stage_pieces(L, k, piece)
+    assert pieces[0][0] == 0 and pieces[-1][2] == L - k + 1
+    W = L - k + 1
+    for runs in {False, aligned}:
+        for b in range(codes.shape[0]):
+            row = codes[b].numpy().tobytes()
+            length = int(lengths[b])
+            hs, vs = [], []
+            served_v = np.zeros(W, dtype=bool)
+            for s, n, w_end in pieces:
+                assert n >= w_end - s + k - 1 and s + n <= L
+                fw, rc, good, n8 = code_stage_piece(row, length, s, n, runs)
+                h, valid = stage_windows(fw, rc, good, s, n8, w_end, k)
+                hs.append(h)
+                vs.append(valid)
+                cut = code_stage_clip(length, s, k, n, w_end)
+                if cut is None:
+                    continue
+                n_c, w_end_c = cut
+                assert s + n_c <= min(length, L) and w_end_c <= w_end
+                fw, rc, good, n8 = code_stage_piece(row, length, s, n_c, runs)
+                h, valid = stage_windows(fw, rc, good, s, n8, w_end_c, k)
+                np.testing.assert_array_equal(valid, v_p[b, s:w_end_c], err_msg=f"row {b}")
+                np.testing.assert_array_equal(h[valid], h_p[b, s:w_end_c][valid])
+                served_v[s:w_end_c] = valid
+            # K2: every window, h included (the hash of the codes & 3 at an
+            # invalid one); the v1 step: every valid window, none left out
+            np.testing.assert_array_equal(np.concatenate(vs), v_p[b], err_msg=f"row {b}")
+            np.testing.assert_array_equal(np.concatenate(hs), h_p[b], err_msg=f"row {b}")
+            np.testing.assert_array_equal(served_v, v_p[b], err_msg=f"row {b}")
+    assert not v_p[:2].any() and v_p[4:].any()
+    return pieces
+
+
+@pytest.mark.parametrize("k,L", [(k, L) for k in (5, 19, 31, 32)
+                                 for L in (64, 128, 150, 264, 4200)])
+def test_code_stage_model_matches_plain_window_hash(k, L):
+    """The card's pieces of 2,048 windows: one piece up to 2,080 bases,
+    three at 4,200 (the last 104 bases); L = 150 is off the 8-base chunk."""
+    pieces = _code_stage_model_rows(k, L, PIECE_WINDOWS)
+    assert len(pieces) == (1 if L <= 2080 else 3)
+
+
+@pytest.mark.parametrize("k,L,offset", [(19, 150, 8), (19, 256, 3), (32, 264, 8),
+                                        (31, 129, 1), (5, 100, 0)])
+def test_code_stage_model_pieces(k, L, offset):
+    """The same with pieces of 64 windows (every piece edge a window of the
+    check, the clip cutting pieces short and skipping whole ones) and rows
+    that are views at an offset: 8-byte aligned at offset 8 with the
+    pitch L + 16 when L % 8 == 0, else byte by byte."""
+    codes, _ = _code_rows(k, L, offset)
+    assert ((codes.data_ptr() | codes.stride(0)) % 8 == 0) == (offset % 8 == 0 and L % 8 == 0)
+    pieces = _code_stage_model_rows(k, L, 64, offset)
+    assert len(pieces) == max(1, -(-(L - 32) // 64))
+
+
+def test_code_stage_model_layout():
+    """The words of a known row: base p = p % 4, all good up to its length
+    13 of 20 bases; the tail past the bases read is zero and bad."""
+    row = bytes(np.arange(20, dtype=np.uint8) % 4)
+    fw, rc, good, n8 = code_stage_piece(row, 13, 0, 20, True)
+    assert n8 == 24
+    acgt = int("0123" * 4, 4)
+    assert int(fw[0]) == acgt and int(fw[1]) == int("0123" + "0" * 12, 4)
+    assert int(good[0]) == (1 << 13) - 1 and not good[1:].any()
+    # rc: position q holds 3 - base (n8 - 1 - q): four zero-base pad
+    # positions (3, T) first, then the reverse complement of ...0123
+    assert int(rc[0]) == int("3333" + "0123" * 3, 4)
 
 
 # ---- (c) the wrapper's checks ----

@@ -1,9 +1,11 @@
 """The port's v1 count path (unpacked codes) against the JAX package: K2's
 plain version against the XLA stage and the Pallas K2 (interpret mode), the
-v1 step against count_step_impl on the same lookup table and batch, and
-run_count(version=1) on the CPU against the JAX v1 engine, the golden
-engine and the reference fixtures (-m included).  Integer data throughout:
-every comparison is exact (tolerance 0)."""
+v1 step (count/kernel.py:count_step, the fused kernel's plain version on
+the CPU) against count_step_impl on the same lookup table and batch, the
+k = 32 k-mer whose hash is the empty-slot key included, the step's input
+checks, and run_count(version=1) on the CPU against the JAX v1 engine, the
+golden engine and the reference fixtures (-m included).  Integer data
+throughout: every comparison is exact (tolerance 0)."""
 
 import pathlib
 
@@ -29,6 +31,7 @@ from ntsm_tpu_torch.io.fastx import BatchReader
 from ntsm_tpu_torch.io.sites import build_lookup, load_site_table
 from ntsm_tpu_torch.options import Options
 from tests.synth import make_reads_fastq, make_site_fasta
+from tests.test_torch_cuda import all_ones_world
 
 torch.set_num_threads(1)
 
@@ -99,10 +102,11 @@ def _world(rng, tmp_path, n_sites=24, coverage=8, k=19, window=31):
     return sites_path, fq
 
 
-@pytest.mark.parametrize("k,window", [(19, 31), (32, 41)])
-def test_count_step_matches_jax(rng, tmp_path, k, window):
+@pytest.mark.parametrize("k,window,seglen", [(19, 31, 128), (32, 41, 128), (19, 31, 150)])
+def test_count_step_matches_jax(rng, tmp_path, k, window, seglen):
     """The same build_lookup table (keys and vals equal) and the same batch
-    give bit-equal counts, total_kmers and total_hits."""
+    give bit-equal counts (the miss slot included), total_kmers and
+    total_hits; on the CPU the step runs its plain version (no launch)."""
     sites_path, fq = _world(rng, tmp_path, k=k, window=window)
     table = load_site_table(sites_path, k=k, allow_dupes=False)
     jtable = jax_load_site_table(sites_path, k=k, allow_dupes=False)
@@ -115,17 +119,92 @@ def test_count_step_matches_jax(rng, tmp_path, k, window):
     np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys).view(np.int64))
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
 
-    batch = next(iter(BatchReader([fq], k=k, seglen=128, batch=256)))
+    batch = next(iter(BatchReader([fq], k=k, seglen=seglen, batch=256)))
     counts = torch.zeros(n + 1, dtype=torch.int32)
+    before = torch_kernel.launches_step
     n_valid, n_found = torch_kernel.count_step(
         torch.from_numpy(batch.codes), torch.from_numpy(batch.lengths), keys, vals, counts,
         k=k, n_kmers=n)
+    assert torch_kernel.launches_step == before
     jc, jk, jh = jax_kernel.count_step_impl(
         jnp.asarray(batch.codes), jnp.asarray(batch.lengths), jkeys, jvals,
         jnp.zeros(n + 1, dtype=jnp.int32), jnp.int64(0), jnp.int64(0), k=k, n_kmers=n)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
     assert (int(n_valid), int(n_found)) == (int(jk), int(jh))
     assert int(n_found) > 0 and int(counts[:n].sum()) == int(n_found)
+    W = seglen - k + 1
+    assert int(counts[n]) == batch.codes.shape[0] * W - int(n_found)
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "site"])
+def test_count_step_all_ones_kmer_matches_jax(case):
+    """k = 32: the one canonical 32-mer whose hash is all ones (EMPTY_KEY)
+    matches every empty slot of its bucket.  With an empty slot there, both
+    the port and JAX count it as found, into the miss slot; in a full
+    bucket as a miss; as a site k-mer into its own count.  Whole counts
+    vector and totals equal."""
+    k = 32
+    codes, lengths, hashes, planted = all_ones_world(case)
+    n = hashes.size
+    lookup = build_lookup(hashes)
+    last = lookup.keys[-1]  # the bucket of the all-ones hash
+    assert (last == np.uint64((1 << 64) - 1)).sum() == {"empty": 8, "full": 0, "site": 8}[case]
+    keys, vals = torch_kernel.make_table_arrays(lookup, n)
+    jkeys, jvals = jax_kernel.make_table_arrays(lookup, n)
+    counts = torch.zeros(n + 1, dtype=torch.int32)
+    n_valid, n_found = torch_kernel.count_step(
+        torch.from_numpy(codes), torch.from_numpy(lengths), keys, vals, counts, k=k, n_kmers=n)
+    jc, jk, jh = jax_kernel.count_step_impl(
+        jnp.asarray(codes), jnp.asarray(lengths), jkeys, jvals,
+        jnp.zeros(n + 1, dtype=jnp.int32), jnp.int64(0), jnp.int64(0), k=k, n_kmers=n)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    assert (int(n_valid), int(n_found)) == (int(jk), int(jh))
+    windows = codes.shape[0] * (codes.shape[1] - k + 1)
+    found = 0 if case == "full" else planted
+    assert int(n_found) == found
+    if case == "site":
+        assert int(counts[int(np.flatnonzero(hashes == hashes.max())[0])]) == planted
+        assert int(counts[n]) == windows - planted
+    else:  # found or not, the planted windows end in the miss slot
+        assert int(counts[:n].sum()) == 0 and int(counts[n]) == windows
+
+
+@pytest.mark.parametrize("case", ["codes_dtype", "k", "lengths", "keys_dtype", "vals_shape",
+                                  "slots", "n_buckets", "counts", "device", "unsupported"])
+def test_count_step_checks(case):
+    """The step's input checks raise before any launch."""
+    n, B, L, k = 30, 4, 64, 19
+    lookup = build_lookup(np.arange(1, n + 1, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15))
+    keys, vals = torch_kernel.make_table_arrays(lookup, n)
+    codes = torch.zeros((B, L), dtype=torch.uint8)
+    lengths = torch.full((B,), L, dtype=torch.int32)
+    counts = torch.zeros(n + 1, dtype=torch.int32)
+    err = ValueError
+    if case == "codes_dtype":
+        codes, err = codes.to(torch.int16), TypeError
+    elif case == "k":
+        k = 33
+    elif case == "lengths":
+        lengths = lengths[:-1]
+    elif case == "keys_dtype":
+        keys, err = keys.to(torch.int32), TypeError
+    elif case == "vals_shape":
+        vals = vals[:-1]
+    elif case == "slots":
+        keys, vals = keys[:, :4], vals[:, :4]
+    elif case == "n_buckets":
+        keys, vals = keys[:-1], vals[:-1]
+    elif case == "counts":
+        counts = counts[:-1]
+    elif case == "device":
+        counts = counts.to("meta")
+    else:
+        codes, lengths, keys, vals, counts = (
+            t.to("meta") for t in (codes, lengths, keys, vals, counts))
+    before = torch_kernel.launches_step
+    with pytest.raises(err):
+        torch_kernel.count_step(codes, lengths, keys, vals, counts, k=k, n_kmers=n)
+    assert torch_kernel.launches_step == before
 
 
 def _totals(res):
@@ -139,9 +218,11 @@ def test_v1_engine_matches_jax_v1_and_golden(rng, tmp_path, geometry):
     sites_path, fq = _world(rng, tmp_path)
     table = load_site_table(sites_path, k=19, allow_dupes=False)
     jtable = jax_load_site_table(sites_path, k=19, allow_dupes=False)
-    counters = (hash_kernel.launches, hash_kernel.launches_codes, kernel_v3.launches)
+    counters = (hash_kernel.launches, hash_kernel.launches_codes, kernel_v3.launches,
+                torch_kernel.launches_step)
     mine = run_count(table, [fq], Options(), EngineConfig(**geometry), device="cpu", version=1)
-    assert (hash_kernel.launches, hash_kernel.launches_codes, kernel_v3.launches) == counters
+    assert (hash_kernel.launches, hash_kernel.launches_codes, kernel_v3.launches,
+            torch_kernel.launches_step) == counters
     ref = jax_run_count(jtable, [fq], JaxOptions(), JaxConfig(**geometry), version=1)
     golden = count_files(table, [fq])
     for other in (ref, golden):

@@ -213,10 +213,13 @@ def test_pair_block_stats_program_lists_and_no_card(capsys):
 def test_count_kernels_program_no_card(capsys):
     """exp_count_kernels' inputs on the CPU at a small size: a fused upload
     of ragged reads and a table holding real k-mers of the batch (so the
-    fused step finds hits, equal to the plain probe's); the program itself
-    needs a card."""
+    fused step finds hits, equal to the plain probe's), and the v1 path's
+    code batch and lookup table (so the v1 step finds hits); the program
+    itself needs a card."""
+    from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.count import kernel_v3
-    from ntsm_tpu_torch.count.kernel_v2 import window_hashes_packed
+    from ntsm_tpu_torch.count.kernel_v2 import window_hashes_codes_plain, window_hashes_packed
+    from ntsm_tpu_torch.io.sites import build_lookup
 
     rng = np.random.default_rng(3)
     k, rows, seglen = 19, 64, 128
@@ -233,6 +236,20 @@ def test_count_kernels_program_no_card(capsys):
     counts = torch.zeros(tab.n_kmers + 1, dtype=torch.int32)
     diag = kernel_v3.count_step_v3(packed, vbits, tab, counts, k, seglen)
     assert int(diag[2]) >= 300 and int(counts.sum()) == int(diag[2])
+    # the v1 path's batch: one read a row, code 4 past its length
+    codes, lengths = exp_count_kernels.codes_batch(torch.device("cpu"), rng, k, rows=rows,
+                                                   seglen=seglen)
+    assert codes.dtype == torch.uint8 and tuple(codes.shape) == (rows, seglen)
+    assert lengths.dtype == torch.int32 and int(lengths.min()) >= k
+    assert bool((codes[torch.arange(seglen)[None, :] >= lengths[:, None]] == 4).all())
+    h, valid = window_hashes_codes_plain(codes, lengths, k)
+    hashes = exp_count_kernels.real_table(h, valid, rng, n_real=300, n_table=5000)
+    keys, vals = kernel_v1.make_table_arrays(build_lookup(hashes), hashes.size)
+    counts = torch.zeros(hashes.size + 1, dtype=torch.int32)
+    n_valid, n_found = kernel_v1.count_step(codes, lengths, keys, vals, counts, k=k,
+                                            n_kmers=hashes.size)
+    assert int(n_found) >= 300 and int(counts[:-1].sum()) == int(n_found)
+    assert int(n_valid) == int(valid.sum())
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert exp_count_kernels.main([]) == 1

@@ -81,7 +81,8 @@ result; any failure raises and ends the run with a non-zero exit:
      one PyTorch call for the form
  15. P3: the DMA-probe program: the ring at depths 4, 16 and 64 on the
      script's 32 MiB plane and 512 x 4096 indices equal to the plain XOR,
-     with ms and M rows/s beside the plain fp[idx] gather's
+     with ms and M rows/s beside the plain fp[idx] gather's, then the ring
+     at depth 64 on sequential indices, the floor of "every row fetched"
  16. the count-kernels program as a user runs it
      (``python -m ntsm_tpu_torch.experiments.exp_count_kernels``, without
      its -Xptxas pass): K1, K4, the two back to back and the fused step at
@@ -1440,6 +1441,13 @@ def dma_probe_program(device, card: str) -> dict:
         if d["depth"] == max(p3.DEPTHS):
             row = dict(launches=launches, max_abs_err=0.0, ms=d["ms"],
                        plain_ms=res["plain_ms"], library_ms=None, **b)
+    seq = res["sequential"]
+    check(seq["correct"], "dma_probe on sequential indices: differs from the plain XOR")
+    print(f"phase 15: dma_probe depth={seq['depth']} on sequential indices (idx_s[s, i] = "
+          f"(s * {p3.N_IDX} + i) mod {p3.ROWS}: every row fetched, no randomness, the floor): "
+          f"equal to the plain XOR; kernel {seq['ms']:.4f} ms = {n / seq['ms'] / 1e3:.1f} M "
+          f"rows/s; the random indices take {row['ms'] / seq['ms']:.3f}x the floor [{card}]",
+          flush=True)
     return row
 
 

@@ -114,8 +114,9 @@ def real_table(h: torch.Tensor, valid: torch.Tensor, rng, n_real: int = N_REAL,
 
 
 def build(out_dir: str, names=COUNT_SOURCES) -> None:
-    """-Xptxas -v of the count kernels' sources (those this checkout has)
-    into out_dir; prints the register and spill lines."""
+    """-Xptxas -v of the kernel sources `names` (the count kernels' by
+    default; those this checkout has) into out_dir; prints the register and
+    spill lines."""
     nvcc = csrc._nvcc()
     src_dir = os.path.dirname(csrc.sources()[0])
     for name in names:

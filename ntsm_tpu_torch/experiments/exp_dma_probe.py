@@ -1,8 +1,8 @@
 """P3 on the card (counterpart of scripts/exp_dma_probe.py): can a ring of
-bulk asynchronous copies gather random 512-B fingerprint rows faster than a
+asynchronous copies gather random 512-B fingerprint rows faster than a
 plain gather?
 
-    python -m ntsm_tpu_torch.experiments.exp_dma_probe
+    python -m ntsm_tpu_torch.experiments.exp_dma_probe [OUT_DIR]
 
 The v3 fingerprint plane (NB = 2^22 buckets x 8 slots of u8, 32 MiB) seen
 as [65536, 128] u32 rows of 64 buckets each; 512 launches of 4096 random
@@ -11,18 +11,25 @@ row indices (seed 0).  :func:`xor_probe` fetches every indexed row through
 XOR-reduces the rows into one [128] u32; :func:`xor_probe_plain` is
 ``fp[idx.flatten()]`` and a halving XOR tree.  Prints, for depths 4, 16
 and 64, whether the kernel is correct, its time and M rows/s beside the
-plain gather's (``fp[idx.flatten()]`` alone); exits 1 with no CUDA device.
+plain gather's (``fp[idx.flatten()]`` alone), then the ring at depth 64 on
+sequential indices (:func:`sequential_idx`: the same 2M rows of 512 B,
+every row fetched, no randomness), the floor of what the random ones can
+reach.  With OUT_DIR, also compiles ``csrc/dma_probe.cu`` with ``-Xptxas
+-v`` (registers, shared memory, spills) into it.  Exits 1 with no CUDA
+device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import sys
 
 import numpy as np
 import torch
 
 from ntsm_tpu_torch import csrc
+from ntsm_tpu_torch.experiments import exp_count_kernels
 from ntsm_tpu_torch.utils.timing import card_line, device_ms
 
 NB = 1 << 22  # buckets of the v3 fp plane
@@ -67,7 +74,7 @@ def xor_probe(fp: torch.Tensor, idx_s: torch.Tensor, depth: int) -> torch.Tensor
     if fp.device.type != "cuda":
         raise ValueError(f"xor_probe: unsupported device {fp.device}")
     if fp.data_ptr() % 16:
-        raise ValueError("xor_probe: fp must be 16-B aligned (bulk copies)")
+        raise ValueError("xor_probe: fp must be 16-B aligned (16-B copies)")
     lib = csrc.load()
     out = torch.zeros(LANES, dtype=torch.int32, device=fp.device)
     rc = lib.ntsm_dma_probe(
@@ -89,9 +96,16 @@ def inputs(device, seed: int = 0, n_launch: int = SCAN):
             torch.from_numpy(idx_s).to(device))
 
 
+def sequential_idx(device, n_launch: int = SCAN) -> torch.Tensor:
+    """idx_s[s, i] = (s * N_IDX + i) mod ROWS: [n_launch, N_IDX] int32."""
+    return (torch.arange(n_launch * N_IDX, dtype=torch.int32, device=device) % ROWS
+            ).reshape(n_launch, N_IDX)
+
+
 def run(device) -> dict:
     """The program's body on `device`: prints and returns its results.
     Keys: depths, one dict a depth (depth, correct and, on the card, ms);
+    sequential, the same for depth MAX_DEPTH on :func:`sequential_idx`;
     n_rows; n_bytes and n_ops, what the bound counts; and on the card
     plain_ms (gather + XOR tree), gather_ms (fp[idx.flatten()] alone),
     plane_bytes, l2_bytes.  CPU tensors run the plain version, untimed."""
@@ -121,6 +135,17 @@ def run(device) -> dict:
             print(f"DMA probe depth={depth:3d}: {n} rows  correct={ok} (plain, untimed)",
                   flush=True)
         res["depths"].append(row)
+    seq = sequential_idx(device, idx_s.shape[0])
+    ok = torch.equal(xor_probe(fp, seq, MAX_DEPTH), xor_probe_plain(fp, seq))
+    res["sequential"] = row = dict(depth=MAX_DEPTH, correct=ok)
+    if cuda:
+        row["ms"] = device_ms(lambda: xor_probe(fp, seq, MAX_DEPTH))
+        print(f"DMA probe depth={MAX_DEPTH:3d} on sequential indices (the floor): "
+              f"{row['ms']:8.4f} ms for {n} rows ({n / row['ms'] / 1e3:8.2f} M rows/s)  "
+              f"correct={ok}", flush=True)
+    else:
+        print(f"DMA probe depth={MAX_DEPTH:3d} on sequential indices: {n} rows  correct={ok} "
+              f"(plain, untimed)", flush=True)
     if cuda:
         flat = idx_s.reshape(-1)
         res["gather_ms"] = device_ms(lambda: fp[flat])
@@ -131,13 +156,16 @@ def run(device) -> dict:
     return res
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing run", file=sys.stderr)
         return 1
+    if argv:
+        os.makedirs(argv[0], exist_ok=True)
+        exp_count_kernels.build(argv[0], names=("dma_probe",))
     res = run(torch.device("cuda", 0))
-    return 0 if all(d["correct"] for d in res["depths"]) else 1
+    return 0 if all(d["correct"] for d in [*res["depths"], res["sequential"]]) else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -75,10 +75,15 @@ result; any failure raises and ends the run with a non-zero exit:
      beside the plain version and the pair it replaced (K2, then the plain
      bucket probe), and the plain probe split into its parts
  14. P1 and P2: the two gather programs as a user runs them
-     (``python -m ntsm_tpu_torch.experiments.exp_pallas_gather[2]``): each
-     of their six forms at the scripts' shapes and seed equal to its plain
-     version, with the kernel's time and the plain version's, which is the
-     one PyTorch call for the form
+     (``python -m ntsm_tpu_torch.experiments.exp_pallas_gather[2]``): the
+     launch floor (an empty kernel, as a single launch and per launch among
+     64 back to back), each of their six forms at the scripts' shapes and
+     seed equal to its plain version, with the kernel's time and the plain
+     version's, which is the one PyTorch call for the form, each as a
+     single launch and per launch among 64, then P1's 1-D gather on
+     sequential indices (a 32-B sector for 8 gathers, against one a gather)
+     and its chained timing as the script made it (30 calls on the host
+     clock)
  15. P3: the DMA-probe program: the ring at depths 4, 16 and 64 on the
      script's 32 MiB plane and 512 x 4096 indices equal to the plain XOR,
      with ms and M rows/s beside the plain fp[idx] gather's, then the ring
@@ -1377,37 +1382,58 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
 def gather_program(device, name: str, card: str) -> dict:
     """Phase 14: P1 ("p1") or P2 ("p2") as a user runs it; each form must
     equal its plain version (tolerance 0).  Returns its kernels-line row:
-    the program's launches and the sums over its forms of the times it
-    measured."""
+    the program's launches, the sums over its forms of the times it
+    measured (single launches, and per launch among gather.IN_STREAM back to
+    back), and the launch floor, the empty kernel's single-launch time."""
     import torch
 
     from ntsm_tpu_torch.experiments import exp_pallas_gather, exp_pallas_gather2, gather
 
     module = exp_pallas_gather if name == "p1" else exp_pallas_gather2
     reset_launches()
-    results = module.run()
+    res = module.run()
     torch.cuda.synchronize()
     launches = dict(gather.launches)
-    check(results is not None, f"{module.__name__} ran nothing")
+    check(res is not None, f"{module.__name__} ran nothing")
+    check(launches["launch_floor"] > 0, f"{name}: the launch floor was not launched")
+    floor = res["floor"]
+    print(f"phase 14: {name} launch floor (empty kernel): {floor['ms']:.4f} ms a single "
+          f"launch, {floor['per_launch_ms']:.4f} ms a launch of {gather.IN_STREAM} back to "
+          f"back [{card}]", flush=True)
     row = dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, bound_by="bytes")
-    for r in results:
+               bound_ms=0.0, bound_by="bytes", per_launch_ms=0.0, floor_ms=floor["ms"])
+    for r in res["forms"]:
         check(r["correct"], f"{name} {r['label']}: differs from its plain version")
         check(launches[r["form"]] > 0, f"{name}: {r['form']} was not launched")
         b = bound(r["n_bytes"], 0, OPS32_PER_S)
         n = r["n"]
         print(f"phase 14: {name} {r['label']} ({r['form']}, {n} gathers): equal to plain; "
-              f"kernel {r['ms']:.4f} ms = {n / r['ms'] / 1e3:.0f} M gathers/s, plain = "
-              f"{gather.FORMS[r['form']][2]} {r['library_ms']:.4f} ms = "
-              f"{n / r['library_ms'] / 1e3:.0f} M gathers/s, bound {b['bound_ms']:.4f} ms "
+              f"kernel {r['ms']:.4f} ms = {n / r['ms'] / 1e3:.0f} M gathers/s, "
+              f"{r['per_launch_ms']:.4f} ms a launch of {gather.IN_STREAM} back to back; plain "
+              f"= {gather.FORMS[r['form']][2]} {r['library_ms']:.4f} ms = "
+              f"{n / r['library_ms'] / 1e3:.0f} M gathers/s, {r['library_per_launch_ms']:.4f} "
+              f"ms a call of {gather.IN_STREAM} back to back; bound {b['bound_ms']:.4f} ms "
               f"({r['n_bytes'] / 1e6:.2f} MB) [{card}]", flush=True)
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "per_launch_ms"):
             row[key] += r[key]
         row["bound_ms"] += b["bound_ms"]
-    forms = sorted({r["form"] for r in results})
+    if "sequential" in res:
+        q = res["sequential"]
+        check(q["correct"], f"{name}: gather_1d on sequential indices differs from plain")
+        print(f"phase 14: {name} gather_1d on sequential indices (arange({q['n']}), a 32-B "
+              f"sector for 8 gathers): equal to plain; {q['ms']:.4f} ms, "
+              f"{q['per_launch_ms']:.4f} ms a launch of {gather.IN_STREAM} back to back "
+              f"[{card}]", flush=True)
+    if "chain" in res:
+        c = res["chain"]
+        print(f"phase 14: {name} the script's timing: {c['calls']} chained gather_1d calls on "
+              f"the host clock, {c['ms']:.4f} ms a call for {c['n']} gathers = "
+              f"{c['n'] / c['ms'] / 1e3:.0f} M gathers/s [{card}]", flush=True)
+    forms = sorted({r["form"] for r in res["forms"]})
     row["launches"] = sum(launches[f] for f in forms)
-    print(f"phase 14: {module.__name__}: launches {row['launches']} (forms {forms}); the "
-          f"kernels line sums the {len(results)} forms' times", flush=True)
+    print(f"phase 14: {module.__name__}: launches {row['launches']} (forms {forms}), launch "
+          f"floor {launches['launch_floor']}; the kernels line sums the {len(res['forms'])} "
+          "forms' times", flush=True)
     return row
 
 

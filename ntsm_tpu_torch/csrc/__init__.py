@@ -133,11 +133,13 @@ def load():
         lib.ntsm_gather_1d.restype = I
         lib.ntsm_gather_1d.argtypes = [P, P, L, P, P]
         lib.ntsm_take_axis0.restype = I
-        lib.ntsm_take_axis0.argtypes = [P, I, P, L, P, P]
+        lib.ntsm_take_axis0.argtypes = [P, L, I, P, L, P, P]
         lib.ntsm_take_axis1.restype = I
         lib.ntsm_take_axis1.argtypes = [P, I, P, I, I, P, P]
         lib.ntsm_row_gather.restype = I
         lib.ntsm_row_gather.argtypes = [P, I, P, I, P, P]
+        lib.ntsm_launch_floor.restype = I
+        lib.ntsm_launch_floor.argtypes = [P]
         lib.ntsm_dma_probe.restype = I
         lib.ntsm_dma_probe.argtypes = [P, P, I, I, I, P, P]
         lib.ntsm_rcp_check.restype = I

@@ -5,9 +5,9 @@ gather forms from a [4096, 128] i32 table, at the script's shapes and seed.
 
 A: take_along_axis(axis=0) with [4096, 128] indices; B: the same with
 [256, 128]; C: take_along_axis(axis=1), a gather within each row; D: the
-row gather t[idx1d] of 256 rows.  Prints whether each form is correct
-against its plain version, its time and M gathers/s, and the one PyTorch
-call's time; exits 1 with no CUDA device.
+row gather t[idx1d] of 256 rows.  Prints the launch floor, whether each
+form is correct against its plain version, its time and M gathers/s, and
+the one PyTorch call's time; exits 1 with no CUDA device.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ def cases(device, seed: int = 0) -> list:
     ]
 
 
-def run() -> list[dict] | None:
-    """The program: its results, one dict a form (gather.run_forms), or None
-    when no card is there."""
+def run() -> dict | None:
+    """The program: its results (gather.program: the floor, one dict a
+    form), or None when no card is there."""
     return program(cases)
 
 

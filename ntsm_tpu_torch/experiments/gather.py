@@ -10,7 +10,9 @@ Values are 32-bit, u32 carried as int32 bit patterns; indices are int32.
 For CPU tensors a wrapper runs its plain version; for CUDA tensors it
 launches its kernel or raises.  An index out of range is the caller's fault,
 as on the TPU: the wrappers check dtypes, shapes, contiguity and device.
-``launches`` counts each form's kernel launches.
+``launches`` counts each form's kernel launches, and those of
+:func:`launch_floor`, an empty kernel whose time is what a launch costs
+apart from any work.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 from ntsm_tpu_torch import csrc
 from ntsm_tpu_torch.utils.timing import card_line, device_ms
 
-launches = dict.fromkeys(("gather_1d", "take_along_axis0", "take_along_axis1", "row_gather"), 0)
+launches = dict.fromkeys(
+    ("gather_1d", "take_along_axis0", "take_along_axis1", "row_gather", "launch_floor"), 0)
+IN_STREAM = 64  # back-to-back launches that a per-launch time is taken over
 
 
 def _check(name: str, tbl: torch.Tensor, idx: torch.Tensor, tbl_dim: int, idx_dim: int) -> None:
@@ -48,6 +52,20 @@ def _launch(name: str, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
     csrc.check(lib, rc, name)
     launches[name] += 1
     return out
+
+
+def launch_floor(device) -> int:
+    """One launch of the empty kernel (one block of 32 threads) on
+    `device`'s current stream; returns the entry point's code, 0 (any other
+    raises).  It has no plain version: it exists to be timed on the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"launch_floor: needs a CUDA device, got {device}")
+    lib = csrc.load()
+    rc = lib.ntsm_launch_floor(csrc.stream_ptr(device))
+    csrc.check(lib, rc, "launch_floor")
+    launches["launch_floor"] += 1
+    return rc
 
 
 def gather_1d_plain(tbl, idx):
@@ -76,7 +94,8 @@ def take_along_axis0(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if tbl.device.type == "cpu":
         return take_along_axis0_plain(tbl, idx)
     out = torch.empty_like(idx)
-    return _launch("take_along_axis0", "ntsm_take_axis0", out, tbl, tbl.shape[1], idx, idx.numel())
+    return _launch("take_along_axis0", "ntsm_take_axis0", out,
+                   tbl, tbl.shape[0], tbl.shape[1], idx, idx.numel())
 
 
 def take_along_axis1_plain(tbl, idx):
@@ -138,14 +157,38 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
 
 
+def in_stream_ms(fn, n: int = IN_STREAM) -> float:
+    """Device time of one fn() among `n` back to back, in ms: device_ms of
+    one call that makes the n calls, over n.  Each call's output is dropped
+    as it goes, so no more than one is held at a time."""
+    def calls():
+        for _ in range(n):
+            fn()
+    return device_ms(calls) / n
+
+
+def floor_times(device) -> dict:
+    """The launch floor on the card: the empty kernel as one timed launch
+    (ms, what device_ms adds to every kernel it times) and per launch among
+    IN_STREAM back to back (per_launch_ms); printed."""
+    res = dict(ms=device_ms(lambda: launch_floor(device)),
+               per_launch_ms=in_stream_ms(lambda: launch_floor(device)))
+    print(f"launch floor (an empty kernel, 1 block of 32 threads): {res['ms']:.4f} ms "
+          f"a single launch, {res['per_launch_ms']:.4f} ms a launch of {IN_STREAM} "
+          f"back to back", flush=True)
+    return res
+
+
 def run_forms(cases) -> list[dict]:
     """Run each (label, form, tbl, idx) case: check the wrapper against its
     plain version and print it as the Pallas scripts did ("compiles;
     correct"); for CUDA tensors also time (device time) the kernel and the
     plain version on an int64 index made once, which makes it the one
-    PyTorch call for the form, and print ms and M gathers/s.  Returns one
-    dict a case: label, form, correct, n (gathers), n_bytes (what the bound
-    counts) and, on the card, ms and plain_ms = library_ms."""
+    PyTorch call for the form, each as a single launch and per launch among
+    IN_STREAM back to back, and print ms and M gathers/s.  Returns one dict
+    a case: label, form, correct, n (gathers), n_bytes (what the bound
+    counts) and, on the card, ms, per_launch_ms, plain_ms = library_ms and
+    library_per_launch_ms."""
     results = []
     for label, form, tbl, idx in cases:
         fn, plain, call = FORMS[form]
@@ -158,24 +201,42 @@ def run_forms(cases) -> list[dict]:
         if tbl.is_cuda:
             idx64 = idx.long()
             res["ms"] = device_ms(lambda: fn(tbl, idx))
+            res["per_launch_ms"] = in_stream_ms(lambda: fn(tbl, idx))
             res["plain_ms"] = res["library_ms"] = device_ms(lambda: plain(tbl, idx64))
+            res["library_per_launch_ms"] = in_stream_ms(lambda: plain(tbl, idx64))
             print(f"  {res['ms']:.4f} ms for {n} gathers -> {n / res['ms'] / 1e3:.0f} "
-                  f"M gathers/s; {call} {res['library_ms']:.4f} ms "
-                  f"({n / res['library_ms'] / 1e3:.0f} M gathers/s)", flush=True)
+                  f"M gathers/s, {res['per_launch_ms']:.4f} ms a launch of {IN_STREAM} "
+                  f"back to back; {call} {res['library_ms']:.4f} ms "
+                  f"({n / res['library_ms'] / 1e3:.0f} M gathers/s), "
+                  f"{res['library_per_launch_ms']:.4f} ms a call of {IN_STREAM} back to back",
+                  flush=True)
         results.append(res)
     return results
 
 
-def program(cases) -> list[dict] | None:
-    """A gather program's body on the card: the card line, then
-    :func:`run_forms` on ``cases(cuda)``; None, after a message, when
-    there is no CUDA device."""
+def program(cases, extra=None) -> dict | None:
+    """A gather program's body on the card: the card line, the launch floor
+    (:func:`floor_times`), then :func:`run_forms` on ``made =
+    cases(cuda)`` and, if given, ``extra(made)``, a dict of further
+    results.  Returns dict(floor=, forms=, **extra(made)); None, after a
+    message, when there is no CUDA device."""
     if not torch.cuda.is_available():
         print("no CUDA device: nothing run", file=sys.stderr)
         return None
     print(card_line(), flush=True)
-    return run_forms(cases(torch.device("cuda", 0)))
+    device = torch.device("cuda", 0)
+    res = dict(floor=floor_times(device))
+    made = cases(device)
+    res["forms"] = run_forms(made)
+    if extra is not None:
+        res.update(extra(made))
+    return res
 
 
-def exit_code(results) -> int:
-    return 0 if results and all(r["correct"] for r in results) else 1
+def exit_code(res) -> int:
+    """0 when the program ran and every form, and every further result that
+    carries a `correct`, equals its plain version."""
+    if not res:
+        return 1
+    rows = res["forms"] + [v for v in res.values() if isinstance(v, dict) and "correct" in v]
+    return 0 if all(r["correct"] for r in rows) else 1

@@ -46,6 +46,18 @@ CASES = {
     "P2B_axis0_fewer_rows": ("take_along_axis0", _kernel_axis0, (256, 128), (32, 128), 256, False),
     "P2C_axis1": ("take_along_axis1", _kernel_axis1, (256, 128), (256, 128), 128, False),
     "P2D_rows": ("row_gather", _kernel_rows, (256, 128), (32,), 256, False),
+    # the kernels' ragged and widest shapes: n % 4 != 0, C and M off the
+    # 16-B path, rows no multiple of a block's 8, the widest axis-1 row
+    "P1a_1d_ragged": ("gather_1d", _kernel_1d, (4096,), (4099,), 4096, True),
+    "P1a_1d_one": ("gather_1d", _kernel_1d, (16,), (1,), 16, True),
+    "P1b_axis0_C5": ("take_along_axis0", _kernel_axis0, (64, 5), (33, 5), 64, True),
+    "P1b_axis0_C7": ("take_along_axis0", _kernel_axis0, (64, 7), (9, 7), 64, True),
+    "P2A_axis0_rows_1027": ("take_along_axis0", _kernel_axis0, (256, 128), (1027, 128), 256,
+                            False),
+    "P2C_axis1_M9_C5": ("take_along_axis1", _kernel_axis1, (37, 5), (37, 9), 5, False),
+    "P2C_axis1_rows_1027": ("take_along_axis1", _kernel_axis1, (1027, 128), (1027, 128), 128, False),
+    "P2C_axis1_widest": ("take_along_axis1", _kernel_axis1, (16, 1536), (16, 128), 1536, False),
+    "P2D_rows_ragged": ("row_gather", _kernel_rows, (256, 128), (37,), 256, False),
 }
 
 
@@ -80,6 +92,54 @@ def test_gather_form_matches_oracle_and_pallas(case):
     for got in (plain(t, i), wrapper(t, i), plain(t, i.long())):
         np.testing.assert_array_equal(got.numpy().view(tbl.dtype), want)
     assert gather.launches == before  # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("form,tbl_shape,idx_shape", [
+    ("gather_1d", (16,), (0,)),
+    ("take_along_axis0", (16, 128), (0, 128)),
+    ("take_along_axis0", (16, 0), (5, 0)),
+    ("take_along_axis1", (0, 128), (0, 9)),
+    ("take_along_axis1", (5, 128), (5, 0)),
+    ("row_gather", (16, 128), (0,)),
+])
+def test_gather_form_on_empty_index(form, tbl_shape, idx_shape):
+    """An empty index (which the Pallas bodies cannot take in interpret
+    mode): the wrapper gives the numpy oracle's empty result, on the CPU."""
+    tbl = np.arange(int(np.prod(tbl_shape)), dtype=np.int32).reshape(tbl_shape)
+    idx = np.zeros(idx_shape, dtype=np.int32)
+    want = _oracle(form, tbl, idx)
+    got = gather.FORMS[form][0](torch.from_numpy(tbl), torch.from_numpy(idx))
+    assert tuple(got.shape) == want.shape and got.dtype == torch.int32
+
+
+def test_chained_timing_index_arithmetic():
+    """The chain the P1 program times (scripts/exp_pallas_gather.py:61-76
+    chain_time): 3 steps of the port's gather_1d, each fed the last output
+    masked with & (TBL - 1), end in the same bits as the script's chain in
+    jax.numpy on the same inputs (a u32 table, so outputs carry the sign
+    bit that the mask must clear)."""
+    size = 256
+    rng = np.random.default_rng(61)
+    tbl = rng.integers(0, 2**32, size=size, dtype=np.uint32)
+    idx = rng.integers(0, size, size=(16, 128), dtype=np.int32)
+    t, o = jnp.asarray(tbl), jnp.asarray(idx)
+    for _ in range(3):
+        o = t[(o & jnp.uint32(size - 1)).astype(jnp.int32)]
+    want = np.asarray(o)
+    assert (want >= 2**31).any()
+    tt, it = gather.to_tensor(tbl, "cpu"), gather.to_tensor(idx, "cpu")
+    for fn in (gather.gather_1d_plain, gather.gather_1d):
+        got = exp_pallas_gather.chain(tt, it, 3, gather=fn)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert not np.array_equal(exp_pallas_gather.chain(tt, it, 2).numpy().view(np.uint32), want)
+
+
+def test_launch_floor_needs_a_card():
+    """The empty kernel has no plain version: on the CPU it raises."""
+    before = gather.launches["launch_floor"]
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.launch_floor("cpu")
+    assert gather.launches["launch_floor"] == before
 
 
 @pytest.mark.parametrize("form,tbl_shape,idx_shape,err", [

@@ -5,14 +5,17 @@
 
 Drives the port's paths, ``ntsm count`` (the v3 engine through the CLI,
 the v1 engine through ``run_count(version=1)``), ``ntsm eval -a``,
-``ntsm eval -p`` and the three experiment programs (P1-P3), through their
-entry points at human scale, after building the CUDA kernels from
+``ntsm eval -p``, the three experiment programs (P1-P3), the reference
+panel's host commands ``ntsm sitegen`` and ``ntsm vcf`` feeding ``eval
+-p``, and the Python API, through their entry points at human scale,
+after building the CUDA kernels from
 ``ntsm_tpu_torch/csrc/`` and holding each against its plain PyTorch version
 on the card.  Imports neither jax nor ntsm_tpu.  Phases, each printing its
 result; any failure raises and ends the run with a non-zero exit:
 
-  0. card name and power limit (nvidia-smi), torch/CUDA versions;
-     exit 1 if there is no CUDA device
+  0. card name and power limit (nvidia-smi), torch/CUDA versions, the
+     host's architecture and its long double's mantissa bits; exit 1 if
+     there is no CUDA device
   1. build the kernel library (nvcc) and the host reader (g++)
   2. the count kernels against their plain versions at the main-path shape
      B = 32768, L = 256, bit-exact (tolerance 0: integer outputs), with
@@ -97,6 +100,36 @@ result; any failure raises and ends the run with a non-zero exit:
      at L = 256, 4096 and 65536; K1's, K4's and K2's launches in the
      kernels line are this program's (the paths run the fused steps
      instead)
+ 17. the reference-panel path, host commands feeding the card, each
+     through ``ntsm_tpu_torch.cli.main`` and timed (host seconds):
+     (a) ``sitegen generate-sites`` on a seeded 1.2-Mbase genome and 8,000
+     A/T <-> C/G SNPs 150 bp apart (w 31, k 19, mismatch and indel on): 13
+     tier files, each holding the sites of the one before, panel_n12.fa
+     loading; (b) a 128-sample phased VCF over them (1% ./., samples
+     120-127 copies of 0-7): ``vcf -p`` and ``sitegen
+     generate-pca-rot-mat dims=20`` write byte-identical matrix and center
+     files, the rotation is orthonormal to 1e-9 and the components are the
+     file's centred matrix times it to 1e-9 of each column's largest; (c)
+     ``vcf --output-counts`` (128 count files), then ``eval -a -p`` with
+     that rotation and centers on the card against ``--engine exact``: the
+     same pairs in the same order, non-score columns byte-identical,
+     scores within 1e-9 max(1, |score|), the candidate-pair kernel
+     launched and the all-vs-all one not, each of the 8 copy pairs a
+     candidate called the same; (d) ``vcf -p`` on the vcf fixtures,
+     byte-identical to vcfout_matrix.tsv and vcfout_center.txt on this
+     host; (e) phase 3's 96,287 site windows laid into a genome with
+     random spacers and a 32-sample VCF at their centres: ``vcf -p``, and
+     each sample's max counts 2 multi for hom, multi for het, 0 for the
+     absent allele on every allele with k-mers; converter and writer
+     seconds
+ 18. the Python API with its defaults (the card): ``api.load_sites`` and
+     ``api.count`` on phase 3's input, the fused step launched once a
+     batch and no other count kernel, ``api.write_counts`` byte-identical
+     to phase 3's golden counts.txt; ``api.evaluate`` on 64 of phase 6's
+     files, rows equal to ``eval -a``'s table parsed the same way, the
+     pair-statistics kernel launched; ``api.merge_counts`` of 8 files
+     byte-identical to ``eval -e out -o``; the launches of phase 17c's
+     ``eval -p`` and phase 18's calls join the kernels line's
   then, passed or failed, every process the run started that is still
      there is stopped and reaped (the resource tracker of the spawn pools
      of phases 6 and 10, and anything a child left behind: this process is
@@ -127,9 +160,11 @@ timed apart).
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import io
 import json
 import os
+import platform
 import shutil
 import sys
 import tempfile
@@ -404,14 +439,19 @@ def write_reads(path: str, rng, at_win, cg_win, n_reads: int, read_len: int = RE
     return n_reads * read_len
 
 
-def cli_count(args) -> str:
+def cli(args) -> str:
+    """``ntsm_tpu_torch.cli.main(args)``'s stdout; exit code 0 required."""
     from ntsm_tpu_torch.cli import main
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = main(["count", *args])
-    check(rc == 0, f"ntsm count {' '.join(args)} exited {rc}")
+        rc = main(list(args))
+    check(rc == 0, f"ntsm {' '.join(args[:6])} ... exited {rc}")
     return out.getvalue()
+
+
+def cli_count(args) -> str:
+    return cli(["count", *args])
 
 
 def reset_launches() -> None:
@@ -429,7 +469,8 @@ def reset_launches() -> None:
 
 
 def main_path(device, work: str, rng, card: str) -> tuple:
-    """Phase 3; returns (launches, sites path, reads path, golden counts.txt)."""
+    """Phase 3; returns (launches, sites path, reads path, golden counts.txt,
+    the sites' (AT, CG) windows)."""
     import torch
 
     from ntsm_tpu_torch.count import hash_kernel, kernel_v3
@@ -489,7 +530,7 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     print(f"phase 3: site load {load_sec:.2f} s; engine (table build + {n_batches} "
           f"batches) {eng_sec:.2f} s, {n_bases / eng_sec / 1e6:.2f} Mbase/s [{card}]",
           flush=True)
-    return launches, sites, fq, want
+    return launches, sites, fq, want, (at_win, cg_win)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -741,13 +782,7 @@ def pair_rows(n: int, r0: int, r1: int):
 
 
 def cli_eval(args) -> str:
-    from ntsm_tpu_torch.cli import main
-
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = main(["eval", *args])
-    check(rc == 0, f"ntsm eval {' '.join(args[:4])} ... exited {rc}")
-    return out.getvalue()
+    return cli(["eval", *args])
 
 
 def compare_tables(got: str, want: str, what: str) -> int:
@@ -804,7 +839,7 @@ def eval_main_path(mx: np.ndarray, work: str, card: str) -> int:
           f"columns byte-identical to --engine exact ({exact_sec:.1f} s), {differ} score strings "
           f"differ; pair_stats launches {launches}; {sec:.2f} s end to end (CLI incl. load), "
           f"{n_pairs / sec:.0f} pairs/s [{card}]", flush=True)
-    return launches
+    return launches, paths
 
 
 class ByteSink:
@@ -1516,6 +1551,305 @@ def count_kernels_program(device, work: str, card: str) -> tuple:
     return launches, res
 
 
+# ---------------------------------------------------------------- phases 17-18
+
+
+PANEL_GENOME = 1_200_000  # bases of the reference panel's genome (phase 17a)
+PANEL_SNPS = 8000  # A/T <-> C/G SNPs, PANEL_SPACING apart
+PANEL_SPACING = 150
+PANEL_SAMPLES = 128  # the panel VCF's samples; the last PANEL_COPIES copy the first
+PANEL_COPIES = 8
+PANEL_MISSING = 0.01  # share of ./. genotype fields
+FULL_SAMPLES = 32  # phase 17e's VCF over the 96,287 site windows
+MULTI = 20  # vcf -m, the default
+
+
+def vcf_lines(rows: list, gts: np.ndarray) -> str:
+    """A multi-sample VCF: rows [(chrom, pos, id, ref, alt)], gts [rows,
+    samples] codes 0..4 for 0|0, 0|1, 1|0, 1|1, ./."""
+    names = np.array(["0|0", "0|1", "1|0", "1|1", "./."], dtype=object)
+    head = "##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"
+    head += "".join(f"\tS{j:03d}" for j in range(gts.shape[1])) + "\n"
+    return head + "".join(f"{c}\t{p}\t{i}\t{r}\t{a}\t.\t.\t.\tGT\t" + "\t".join(names[g]) + "\n"
+                          for (c, p, i, r, a), g in zip(rows, gts))
+
+
+def random_genotypes(rng, n_rows: int, n_samples: int, missing: float) -> np.ndarray:
+    """[n_rows, n_samples] phased genotype codes (vcf_lines) from per-row
+    allele frequencies in [0.05, 0.95], a share `missing` of them ./."""
+    freq = rng.uniform(0.05, 0.95, (n_rows, 1))
+    gts = ((rng.random((n_rows, n_samples)) < freq).astype(np.int64)
+           + 2 * (rng.random((n_rows, n_samples)) < freq))
+    gts[rng.random(gts.shape) < missing] = 4
+    return gts
+
+
+def read_tsv(path: str) -> tuple:
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    return (lines[0], [ln.split("\t", 1)[0] for ln in lines[1:]],
+            np.array([ln.split("\t")[1:] for ln in lines[1:]], dtype=np.float64))
+
+
+def panel_path(work: str, card: str) -> dict:
+    """Phases 17a-17d: a reference panel through sitegen, vcf and eval -p;
+    returns K5's launches (tile, sparse) in 17c's eval -p and the steps'
+    seconds."""
+    import torch
+
+    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.io.sites import load_site_table
+    from ntsm_tpu_torch.sitegen.pipeline import read_matrix
+
+    secs = {}
+    rng = np.random.default_rng(20261019)
+    pdir = os.path.join(work, "panel")
+    os.makedirs(pdir)
+    at = lambda name: os.path.join(pdir, name)  # noqa: E731
+
+    # 17a: the site set of a seeded genome and SNP VCF
+    genome = rng.integers(0, 4, PANEL_GENOME)
+    pos = 100 + PANEL_SPACING * np.arange(PANEL_SNPS)
+    ref = genome[pos - 1]
+    is_at = (ref == 0) | (ref == 3)
+    alt = np.where(is_at, rng.integers(1, 3, PANEL_SNPS), 3 * rng.integers(0, 2, PANEL_SNPS))
+    with open(at("genome.fa"), "wb") as fh:
+        fh.write(b">chr1\n" + LETTERS[genome].tobytes() + b"\n")
+    snps = [("chr1", int(p), f"rs{i}", chr(LETTERS[r]), chr(LETTERS[a]))
+            for i, (p, r, a) in enumerate(zip(pos, ref, alt))]
+    with open(at("snps.vcf"), "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        fh.write("".join(f"{c}\t{p}\t{i}\t{r}\t{a}\t.\t.\t.\n" for c, p, i, r, a in snps))
+    t0 = time.monotonic()
+    cli(["sitegen", "generate-sites", f"name={at('panel')}", f"ref={at('genome.fa')}",
+         f"vcf={at('snps.vcf')}"])
+    secs["sitegen generate-sites"] = time.monotonic() - t0
+    tiers = []
+    for i in range(13):
+        check(os.path.exists(at(f"panel_n{i}.fa")), f"sitegen wrote no panel_n{i}.fa")
+        with open(at(f"panel_n{i}.fa")) as fh:
+            tiers.append({ln.split()[0] for ln in fh if ln.startswith(">")})
+    check(not os.path.exists(at("panel_n13.fa")), "sitegen wrote a 14th tier")
+    check(all(a <= b for a, b in zip(tiers, tiers[1:])), "a tier misses a site of the tier before")
+    table = load_site_table(at("panel_n12.fa"), K, allow_dupes=False)
+    check(table.n_sites == len(tiers[12]) > PANEL_SNPS // 2, f"panel_n12.fa: {table.n_sites} sites")
+    print(f"phase 17a: sitegen generate-sites on a {PANEL_GENOME}-base genome and {PANEL_SNPS} "
+          f"SNPs: 13 nested tiers of {len(tiers[0])} .. {len(tiers[12])} sites, panel_n12.fa "
+          f"loads ({table.n_kmers} k-mers) in {secs['sitegen generate-sites']:.2f} s (host)",
+          flush=True)
+
+    # 17b: the PCA training matrix and rotation of a 128-sample panel
+    gts = random_genotypes(rng, PANEL_SNPS, PANEL_SAMPLES, PANEL_MISSING)
+    gts[:, PANEL_SAMPLES - PANEL_COPIES :] = gts[:, :PANEL_COPIES]
+    with open(at("panel.vcf"), "w") as fh:
+        fh.write(vcf_lines(snps, gts))
+    sites = at("panel_n12.fa")
+    t0 = time.monotonic()
+    cli(["vcf", "-p", at("panel"), "-s", sites, "-r", at("genome.fa"), at("panel.vcf")])
+    secs["vcf -p"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cli(["sitegen", "generate-pca-rot-mat", f"name={at('panel2')}", f"ref={at('genome.fa')}",
+         f"multivcf={at('panel.vcf')}", f"sites={sites}", f"dims={N_PCS}"])
+    secs["sitegen generate-pca-rot-mat"] = time.monotonic() - t0
+    for name in ("matrix.tsv", "center.txt"):
+        check(filecmp.cmp(at(f"panel_{name}"), at(f"panel2_{name}"), shallow=False),
+              f"vcf -p and generate-pca-rot-mat wrote different {name}")
+    site_list, samples, mat = read_matrix(at("panel2_matrix.tsv"))
+    rh, rid, rot = read_tsv(at("panel2_rotationalMatrix.tsv"))
+    ch, cid, comp = read_tsv(at("panel2_components.tsv"))
+    check(rh == "AlleleID\t" + "\t".join(map(str, range(N_PCS))) and rid == site_list
+          and rot.shape == (len(site_list), N_PCS), "rotationalMatrix.tsv's layout")
+    check(ch.startswith("SampleID\t0\t") and cid == samples and comp.shape == (PANEL_SAMPLES, N_PCS),
+          "components.tsv's layout")
+    ortho = float(np.abs(rot.T @ rot - np.eye(N_PCS)).max())
+    check(ortho <= 1e-9, f"the rotation's columns are not orthonormal: {ortho:.3g}")
+    x = mat.T - mat.T.mean(axis=0)
+    proj = float((np.abs(x @ rot - comp) / np.abs(comp).max(axis=0)).max())
+    check(proj <= 1e-9, f"components.tsv is not the centred matrix times the rotation: {proj:.3g}")
+    print(f"phase 17b: vcf -p ({secs['vcf -p']:.2f} s) and generate-pca-rot-mat dims={N_PCS} "
+          f"({secs['sitegen generate-pca-rot-mat']:.2f} s) on {PANEL_SAMPLES} samples x "
+          f"{len(site_list)} sites (host): the same matrix and centers byte for byte; the "
+          f"rotation orthonormal to {ortho:.2e}, the components the centred matrix times it to "
+          f"{proj:.2e}", flush=True)
+
+    # 17c: count files from the panel VCF, eval -p on the card against exact
+    cdir = at("counts")
+    os.makedirs(cdir)
+    t0 = time.monotonic()
+    with contextlib.chdir(cdir):
+        cli(["vcf", "--output-counts", "-s", sites, "-r", at("genome.fa"), at("panel.vcf")])
+    secs["vcf --output-counts"] = time.monotonic() - t0
+    paths = [os.path.join(cdir, f"{sid}.counts.txt") for sid in samples]
+    check(sorted(os.listdir(cdir)) == sorted(map(os.path.basename, paths)),
+          "vcf --output-counts did not write one count file a sample")
+    args = ["-a", "-p", at("panel2_rotationalMatrix.tsv"), "-n", at("panel_center.txt"), *paths]
+    reset_launches()
+    t0 = time.monotonic()
+    got = cli_eval(args)
+    torch.cuda.synchronize()
+    secs["eval -p"] = time.monotonic() - t0
+    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse)
+    check(sum(launches) > 0 and pair_kernel.launches == 0,
+          f"eval -p launched pair_block_stats {launches} and pair_stats {pair_kernel.launches}")
+    t0 = time.monotonic()
+    want = cli_eval(["--engine", "exact", *args])
+    secs["eval -p --engine exact"] = time.monotonic() - t0
+    differ = compare_tables(got, want, "panel eval -p vs --engine exact")
+    rows = {tuple(ln.split("\t")[:2]): ln.split("\t")[3] for ln in got.splitlines()[1:]}
+    for j in range(PANEL_COPIES):
+        pair = (paths[j], paths[PANEL_SAMPLES - PANEL_COPIES + j])
+        check(rows.get(pair) == "1", f"the copy pair {pair} is not a candidate called the same")
+    n_pairs = PANEL_SAMPLES * (PANEL_SAMPLES - 1) // 2
+    print(f"phase 17c: vcf --output-counts wrote {len(paths)} count files "
+          f"({secs['vcf --output-counts']:.2f} s, host); eval -a -p on the card: {len(rows)} "
+          f"candidate rows of {n_pairs} pairs, the same pairs and order as --engine exact with "
+          f"every non-score column byte-identical, {differ} score strings differ; the "
+          f"{PANEL_COPIES} copy pairs called the same; pair_block_stats launches {launches} "
+          f"(tiles, sparse); {secs['eval -p']:.2f} s (exact {secs['eval -p --engine exact']:.2f} "
+          f"s) [{card}]", flush=True)
+
+    # 17d: the vcf fixtures, whatever this host's long double is
+    t0 = time.monotonic()
+    cli(["vcf", "-p", at("fixture"), "-s", os.path.join(FIX, "vcf_sites.fa"),
+         "-r", os.path.join(FIX, "vcf_genome.fa"), os.path.join(FIX, "multi.vcf")])
+    for name in ("matrix.tsv", "center.txt"):
+        check(filecmp.cmp(at(f"fixture_{name}"), os.path.join(FIX, f"vcfout_{name}"),
+                          shallow=False),
+              f"vcf -p: {name} differs from the fixture vcfout_{name}")
+    secs["vcf fixtures"] = time.monotonic() - t0
+    print("phase 17d: vcf -p on the fixtures: vcfout_matrix.tsv and vcfout_center.txt "
+          "byte-identical", flush=True)
+    return dict(launches=launches, secs=secs)
+
+
+def full_width_vcf(work: str, sites: str, windows: tuple) -> dict:
+    """Phase 17e: phase 3's 96,287 site windows laid into a genome with
+    random spacers, a FULL_SAMPLES-sample VCF at their centres, vcf -p on
+    it; each sample's max counts against its genotypes.  Returns the
+    steps' seconds."""
+    from ntsm_tpu_torch.io.sites import load_site_table
+    from ntsm_tpu_torch.options import Options
+    from ntsm_tpu_torch.vcf.convert import HET, HOM1, HOM2, VCFConverter
+
+    at_win, cg_win = windows
+    n_sites, window = at_win.shape
+    half = window // 2
+    rng = np.random.default_rng(20261020)
+    t0 = time.monotonic()
+    ref_at = rng.random(n_sites) < 0.5  # the genome carries the AT or the CG allele
+    ref_win = np.where(ref_at[:, None], at_win, cg_win)
+    alt_base = np.where(ref_at, cg_win[:, half], at_win[:, half])
+    starts = np.cumsum(window + rng.integers(10, 41, n_sites)) - window
+    genome = rng.integers(0, 4, int(starts[-1]) + window + 40).astype(np.uint8)
+    genome[starts[:, None] + np.arange(window)] = ref_win
+    fdir = os.path.join(work, "full")
+    os.makedirs(fdir)
+    ref_path, vcf = os.path.join(fdir, "genome.fa"), os.path.join(fdir, "full.vcf")
+    with open(ref_path, "wb") as fh:
+        fh.write(b">chr1\n" + LETTERS[genome].tobytes() + b"\n")
+    gts = random_genotypes(rng, n_sites, FULL_SAMPLES, PANEL_MISSING)
+    rows = [("chr1", int(s) + half + 1, f"rs{100000 + i}", chr(LETTERS[r]), chr(LETTERS[a]))
+            for i, (s, r, a) in enumerate(zip(starts, ref_win[:, half], alt_base))]
+    with open(vcf, "w") as fh:
+        fh.write(vcf_lines(rows, gts))
+    secs = {"write": time.monotonic() - t0}
+
+    prefix = os.path.join(fdir, "full")
+    t0 = time.monotonic()
+    cli(["vcf", "-p", prefix, "-s", sites, "-r", ref_path, vcf])
+    secs["vcf -p"] = time.monotonic() - t0
+
+    # the same conversion by its parts: the converter, the check, the writer
+    opts = Options(snp=sites, ref=ref_path)
+    table = load_site_table(sites, K, allow_dupes=False)
+    t0 = time.monotonic()
+    conv = VCFConverter(table, opts)
+    conv.count(vcf)
+    secs["converter"] = time.monotonic() - t0
+    mx, _ = conv.site_max_matrix()
+    code = np.where(gts == 4, HOM1, np.where(gts == 3, HOM2, np.where(gts == 0, HOM1, HET))).T
+    ref_allele = np.where(ref_at, 0, 1)
+    want = np.zeros((FULL_SAMPLES, n_sites, 2), dtype=np.int64)
+    rows_i = np.arange(n_sites)
+    for s in range(FULL_SAMPLES):
+        on_ref = np.where(code[s] == HOM1, 2 * MULTI, np.where(code[s] == HET, MULTI, 0))
+        on_alt = np.where(code[s] == HOM2, 2 * MULTI, np.where(code[s] == HET, MULTI, 0))
+        want[s, rows_i, ref_allele] = on_ref
+        want[s, rows_i, 1 - ref_allele] = on_alt
+    want[:, table.distinct == 0] = 0  # an allele whose k-mers were all shared
+    bad = int((mx != want).any(axis=(0, 2)).sum())
+    check(bad == 0, f"vcf: {bad} sites' max counts disagree with their genotypes")
+    t0 = time.monotonic()
+    conv.output_matrix(prefix + "2")
+    secs["writer"] = time.monotonic() - t0
+    for name in ("matrix.tsv", "center.txt"):
+        check(filecmp.cmp(f"{prefix}_{name}", f"{prefix}2_{name}", shallow=False),
+              f"vcf -p's {name} differs")
+    print(f"phase 17e: vcf -p on {n_sites} sites x {FULL_SAMPLES} samples ({len(genome)}-base "
+          f"genome; inputs written in {secs['write']:.2f} s): {secs['vcf -p']:.2f} s through the "
+          f"CLI; converter {secs['converter']:.2f} s, writer {secs['writer']:.2f} s, "
+          f"{(secs['converter'] + secs['writer']) / n_sites * 1e6:.2f} us a site (host); every "
+          f"sample's max counts {2 * MULTI} / {MULTI} / 0 as its genotypes say on all "
+          f"{int((table.distinct > 0).sum())} alleles with k-mers", flush=True)
+    return secs
+
+
+def api_path(sites: str, fq: str, golden_text: str, n_batches: int, count_files: list,
+             work: str, card: str) -> dict:
+    """Phase 18: the Python API on the card with its defaults; returns the
+    launches of the fused count step (api.count) and of pair_stats
+    (api.evaluate), and the steps' seconds."""
+    import torch
+
+    import ntsm_tpu_torch.api as api
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import kernel as kernel_v1
+    from ntsm_tpu_torch.eval import pair_kernel
+
+    secs = {}
+    t0 = time.monotonic()
+    table = api.load_sites(sites)
+    reset_launches()
+    res = api.count(table, [fq])
+    torch.cuda.synchronize()
+    secs["count"] = time.monotonic() - t0
+    step = kernel_v3.launches_step
+    others = (hash_kernel.launches, kernel_v3.launches, hash_kernel.launches_codes,
+              kernel_v1.launches_step)
+    check(step == n_batches, f"api.count launched the fused step {step} times for {n_batches} batches")
+    check(not any(others), f"api.count launched K1, K4, K2 or the v1 step: {others}")
+    buf = io.StringIO()
+    api.write_counts(buf, table, res)
+    check(buf.getvalue() == golden_text, "api.write_counts differs from phase 3's golden counts.txt")
+
+    paths = count_files[:64]
+    reset_launches()
+    t0 = time.monotonic()
+    rows = api.evaluate(paths)
+    torch.cuda.synchronize()
+    secs["evaluate"] = time.monotonic() - t0
+    pair = pair_kernel.launches
+    check(pair > 0, "api.evaluate did not launch pair_stats")
+    table_rows = api.table_rows(cli_eval(["-a", *paths]))
+    as_text = lambda rs: [{k: repr(v) for k, v in r.items()} for r in rs]  # noqa: E731
+    check(len(rows) == 64 * 63 // 2 and as_text(rows) == as_text(table_rows),
+          "api.evaluate's rows differ from eval -a's table")
+
+    merged, merged_cli = os.path.join(work, "api_merged.txt"), os.path.join(work, "cli_merged.txt")
+    t0 = time.monotonic()
+    api.merge_counts(paths[:8], merged)
+    secs["merge_counts"] = time.monotonic() - t0
+    cli_eval(["-e", merged_cli, "-o", *paths[:8]])
+    check(filecmp.cmp(merged, merged_cli, shallow=False), "api.merge_counts differs from eval -e -o")
+    print(f"phase 18: api.count on phase 3's input with its defaults (the card) "
+          f"{secs['count']:.2f} s: the fused step launched {step} times = {n_batches} batches, "
+          f"K1, K4, K2 and the v1 step not; write_counts byte-identical to golden; "
+          f"api.evaluate on 64 of phase 6's files {secs['evaluate']:.2f} s: {len(rows)} rows equal "
+          f"to eval -a's, pair_stats launches {pair}; merge_counts of 8 byte-identical to eval -e "
+          f"-o [{card}]", flush=True)
+    return dict(count_step=step, pair_stats=pair, secs=secs)
+
+
 # ---------------------------------------------------------------- processes
 
 
@@ -1608,11 +1942,12 @@ def main() -> int:
     print(card, flush=True)
     subreaper = become_subreaper()
     try:
-        kernels = run_phases(card)
+        kernels, summary = run_phases(card)
     finally:
         left = stop_children()
         print(f"end: processes of this run still there at its end, now stopped: "
               f"{left or 'none'} (subreaper: {subreaper})", flush=True)
+    print(summary, flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1622,13 +1957,16 @@ def main() -> int:
 
 
 def run_phases(card: str) -> list:
-    """Phases 1-16; returns the kernels line's rows."""
+    """Phases 1-18; returns the kernels line's rows and the summary of the
+    checks that passed."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"phase 0: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}; "
-          "matmul TF32 off (no torch matmul on these paths)", flush=True)
+          "matmul TF32 off (no torch matmul on these paths); host "
+          f"{platform.machine()}, long double of {np.finfo(np.longdouble).nmant} "
+          "mantissa bits (vcf's center file does not use it)", flush=True)
     device = torch.device("cuda", 0)
 
     from ntsm_tpu_torch import csrc, native
@@ -1649,7 +1987,7 @@ def run_phases(card: str) -> list:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        launches, sites, fq, golden_text = main_path(device, work, rng, card)
+        launches, sites, fq, golden_text, windows = main_path(device, work, rng, card)
         fixtures(device)
 
         t0 = time.monotonic()
@@ -1658,7 +1996,7 @@ def run_phases(card: str) -> list:
               f"{time.monotonic() - t0:.1f} s", flush=True)
         pair = check_pair_stats(device, cohort, card)
         block = check_pair_block_stats(device, cohort, card)
-        launches["pair_stats"] = eval_main_path(cohort, work, card)
+        launches["pair_stats"], count_files = eval_main_path(cohort, work, card)
         eval_cohort(device, cohort, card)
         del cohort
         eval_fixtures()
@@ -1679,6 +2017,19 @@ def run_phases(card: str) -> list:
         dma = dma_probe_program(device, card)
         standalone, _ = count_kernels_program(device, work, card)
         launches.update(standalone)
+        t0 = time.monotonic()
+        panel = panel_path(work, card)
+        full_secs = full_width_vcf(work, sites, windows)
+        api_run = api_path(sites, fq, golden_text, launches["count_step"], count_files, work, card)
+        host = {**panel["secs"], **{f"17e {k}": v for k, v in full_secs.items()},
+                **{f"api.{k}": v for k, v in api_run["secs"].items()}}
+        print(f"phases 17-18: {time.monotonic() - t0:.1f} s in all; host seconds by step "
+              f"{json.dumps({k: round(v, 3) for k, v in host.items()})}", flush=True)
+        # the new paths' launches: phase 18's api.count and api.evaluate, 17c's eval -p
+        launches["count_step"] += api_run["count_step"]
+        launches["pair_stats"] += api_run["pair_stats"]
+        launches["pair_block_stats"] += panel["launches"][0]
+        launches["pair_block_stats_sparse"] += panel["launches"][1]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1722,7 +2073,16 @@ def run_phases(card: str) -> list:
         dict(name="dma_probe", route="cuda", source="ntsm_tpu_torch/csrc/dma_probe.cu",
              replaces="scripts/exp_dma_probe.py:53", **dma),
     ]
-    return kernels
+    summary = ("summary: every phase passed: 2, 12 the count kernels bit-exact to their plain "
+               "versions; 3, 4, 13 counts.txt byte-identical to golden and the fixtures; 5, 9 "
+               "the pair kernels bit-exact; 6, 10 eval -a and -p = --engine exact; 7, 11 the "
+               "N = 3202 scorers; 8 the eval fixtures; 14-16 the experiment programs; 17a 13 "
+               "nested tiers; 17b vcf -p = generate-pca-rot-mat's matrix and centers, the "
+               "rotation orthonormal, the components the centred matrix times it; 17c eval -p "
+               "on the panel = --engine exact with K5 launched and the copy pairs called the "
+               "same; 17d the vcf fixtures byte-identical; 17e 96,287 sites' max counts = "
+               "their genotypes; 18 the API = the CLIs and golden, on the card")
+    return kernels, summary
 
 
 if __name__ == "__main__":

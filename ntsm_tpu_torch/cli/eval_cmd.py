@@ -180,11 +180,11 @@ def run(argv) -> int:
         print(f"Error: --engine must be one of {', '.join(ENGINES)} and "
               f"--device one of {', '.join(DEVICES)}", file=sys.stderr)
         return 1
-    # single-sample QC, --only_merge and the -b harness (which scores its
-    # true pairs on the host, as the JAX package does) need no device
-    scores_pairs = len(files) > 1 and not opts.only_merge and not (opts.pca and opts.debug)
+    from ntsm_tpu_torch.eval.driver import run_eval, scores_pairs
+
+    scores = scores_pairs(opts, len(files))
     if opts.engine == "auto":
-        opts = opts.replace(engine="cuda" if scores_pairs else "exact")
+        opts = opts.replace(engine="cuda" if scores else "exact")
     elif opts.engine == "exact" and len(files) > 1000 and not opts.only_merge:
         n_pairs = len(files) * (len(files) - 1) // 2
         print(
@@ -194,7 +194,7 @@ def run(argv) -> int:
             "within ~1e-9.",
             file=sys.stderr,
         )
-    if opts.engine == "cuda" and device == "cuda" and scores_pairs:
+    if opts.engine == "cuda" and device == "cuda" and scores:
         import torch
 
         if not torch.cuda.is_available():
@@ -204,7 +204,6 @@ def run(argv) -> int:
 
     t0 = time.monotonic()
     from ntsm_tpu_torch.cli.count_cmd import _rss_kb
-    from ntsm_tpu_torch.eval.driver import run_eval
     from ntsm_tpu_torch.eval.model import load_count_data
 
     if opts.verbose > 0:

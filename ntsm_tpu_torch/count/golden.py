@@ -39,6 +39,26 @@ class CountResult:
             np.add.at(sm, idx, self.counts)
         return mx, sm
 
+    def coverage(self, table) -> float:
+        """Fold coverage = sum of per-site max counts / n_sites, the
+        quantity ntsmEval derives from a count file
+        (CompareCounts.hpp:104-106,296-298)."""
+        mx, _ = self.site_max_sum(table)
+        return float(mx.sum()) / float(table.n_sites)
+
+    def error_rate(self, table, genome_size: float = 6.2e9) -> float:
+        """Sequencing error estimate (computeErrorRate,
+        CompareCounts.hpp:1198-1217); -1 when inputs are missing."""
+        if self.total_kmers <= 0 or table.k <= 0:
+            return -1.0
+        mx, sm = self.site_max_sum(table)
+        expected = (
+            float(self.total_kmers) * float(table.distinct.sum()) / genome_size
+        )
+        if expected <= 0:
+            return -1.0
+        return 1.0 - (float(sm.sum()) / expected) ** (1.0 / float(table.k))
+
 
 def max_counts_threshold(n_kmers: int, cov_thresh: float) -> float:
     """m_maxCounts = size * covThresh / 2; 0 disables (FingerPrint.hpp:41-43)."""

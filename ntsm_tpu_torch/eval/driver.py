@@ -130,6 +130,14 @@ def compute_score_pca_debug(data: CountData, opts: Options, out, cloud: np.ndarr
         out.write("\n")
 
 
+def scores_pairs(opts: Options, n_files: int) -> bool:
+    """Whether a run over n_files scores pairs, which is where engine
+    "auto" means the device engine: single-sample QC, --only_merge and the
+    -b harness (which scores its true pairs on the host, as the JAX package
+    does) score none."""
+    return n_files > 1 and not opts.only_merge and not (opts.pca and opts.debug)
+
+
 def run_eval(data: CountData, opts: Options, out, device="cuda"):
     """Top-level dispatch (ntSeqMatchEval.cpp:304-341).  The device engine
     (opts.engine == "cuda") runs on `device`; its stage times are returned

@@ -4,8 +4,7 @@ One explicit dataclass replaces the reference's mutable globals
 (reference: src/Options.h:21-62, src/Options.cpp).  Field names and defaults
 are the JAX package's, which keeps the reference's because several of them
 (minCov, covSkew, scoreThresh, genomeSize, the PCA radius tiers) leak
-directly into numeric output.  The fields of ``count`` and ``eval`` are
-here; the vcf fields come with their slice.
+directly into numeric output.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ UNSIGNED_MAX = 2**32 - 1
 
 @dataclasses.dataclass
 class Options:
-    """Knobs of ``count`` and ``eval``, defaults per src/Options.h:21-62."""
+    """Knobs of ``count``, ``eval`` and ``vcf``, defaults per src/Options.h:21-62."""
 
     # PCA dimensionality (src/Options.h:22)
     dim: int = 20
@@ -60,6 +59,11 @@ class Options:
     # keep k-mers shared between sites (-d)
     dupes: bool = False
     genome_size: int = 6_200_000_000
+
+    # vcf-conversion params (src/Options.h:57-59)
+    ref: str = ""
+    window: int = 31
+    multi: int = 20
 
     # debug ground-truth pair file for eval -b (src/Options.h:61)
     debug: str = ""

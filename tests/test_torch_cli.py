@@ -122,20 +122,24 @@ def test_main_dispatch(capsys):
     assert main(["eval", "a", "b"]) == 1
     assert "input file a does not exist" in capsys.readouterr().err
     assert main(["vcf", "a", "b"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    assert "Missing variants (-s)" in capsys.readouterr().err
+    assert main(["sitegen", "bogus"]) == 1
+    assert "unknown target" in capsys.readouterr().err
     assert main(["bogus"]) == 1
     assert main(["count", "--version"]) == 0
     assert "ntsm_tpu_torch" in capsys.readouterr().err
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax or ntsm_tpu."""
+    """Every module of the port imports without jax or ntsm_tpu, and
+    without pandas or sklearn, which the card machine lacks."""
     code = (
         "import pkgutil, sys, ntsm_tpu_torch\n"
         "for m in pkgutil.walk_packages(ntsm_tpu_torch.__path__, 'ntsm_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        __import__(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ntsm_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ntsm_tpu', 'pandas', 'sklearn'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

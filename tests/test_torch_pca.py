@@ -349,14 +349,15 @@ def _jax_import(node) -> str | None:
     else:
         return None
     for name in names:
-        if name.split(".")[0] in ("jax", "jaxlib", "ntsm_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "ntsm_tpu", "pandas", "sklearn"):
             return name
     return None
 
 
 def test_port_uses_nothing_of_the_jax_package(monkeypatch, tmp_path):
     """No file of ntsm_tpu_torch/ nor chip_smoke.py imports jax or
-    ntsm_tpu, or names a path under ntsm_tpu/ outside its docstrings and
+    ntsm_tpu (nor pandas or sklearn, which the card machine lacks: sitegen's
+    PCA is numpy/scipy), or names a path under ntsm_tpu/ outside its docstrings and
     comments (the `replaces=` notes of chip_smoke's kernels line aside);
     the native and kernel builds compile only the port's own sources."""
     import subprocess

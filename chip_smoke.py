@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's paths, ``ntsm count`` (the v3 engine through the CLI,
-the v1 engine through ``run_count(version=1)``), ``ntsm eval -a``,
+the v1 and v2 engines through ``run_count(version=1|2)``, ``--trace`` and
+``--distributed``), ``ntsm eval -a`` (``--distributed`` too),
 ``ntsm eval -p``, the three experiment programs (P1-P3), the reference
 panel's host commands ``ntsm sitegen`` and ``ntsm vcf`` feeding ``eval
 -p``, and the Python API, through their entry points at human scale,
@@ -130,6 +131,30 @@ result; any failure raises and ends the run with a non-zero exit:
      pair-statistics kernel launched; ``api.merge_counts`` of 8 files
      byte-identical to ``eval -e out -o``; the launches of phase 17c's
      ``eval -p`` and phase 18's calls join the kernels line's
+ 19. the v2 path: ``run_count(..., version=2)`` on phase 3's sites and
+     reads, one read a row; its counts.txt must be byte-identical to phase
+     3's golden text, the v2 step's launch counter (window hash, 16-slot
+     bucket lookup and the hit list in one kernel) must equal the batch
+     count and no other count or eval kernel may launch; then the v2 step
+     against its plain version, the triple (top, n_found, n_valid)
+     bit-exact, on a random 32768 x 256 batch at k = 19 with a table of
+     the human site set's size holding 40,000 of its k-mers (timed), and on
+     the three all-ones worlds at k = 32 (all_ones_world of
+     tests/test_torch_cuda.py, loaded from its file), where it must find
+     0, 0 and 8 as the golden engine does
+ 20. ``python -m ntsm_tpu_torch count --trace DIR`` on phase 3's input, a
+     process of its own, and the same without --trace: both stdouts
+     byte-identical to golden; the trace parses as JSON and holds the four
+     stage spans and CUDA kernel events of the fused count step
+     (hash_probe_count.cu's count_step_kernel); wall times and the trace's
+     size
+ 21. ``--distributed`` with two ranks on the one card (gloo, the JAX
+     package's rendezvous variables): ``count`` over phase 3's reads split
+     into 3 files, rank 0's stdout byte-identical to golden; ``eval -a``
+     on phase 6's 320 files, rank 0's table byte-identical to phase 6's
+     one-process table, with the default row blocks and with blocks of
+     4,096 pairs (dealt to both ranks, gathered on rank 0); rank 1 prints
+     nothing; wall times beside the one-process ones
   then, passed or failed, every process the run started that is still
      there is stopped and reaped (the resource tracker of the spawn pools
      of phases 6 and 10, and anything a child left behind: this process is
@@ -456,13 +481,13 @@ def cli_count(args) -> str:
 
 def reset_launches() -> None:
     """Every kernel's launch counter to 0, just before a path is driven."""
-    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
     from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.eval import pair_kernel
     from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
-    kernel_v3.launches_step = kernel_v1.launches_step = 0
+    kernel_v3.launches_step = kernel_v1.launches_step = kernel_v2.launches_step = 0
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
@@ -473,7 +498,7 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     the sites' (AT, CG) windows)."""
     import torch
 
-    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
     from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.io.fastx import BatchReader
 
@@ -496,7 +521,8 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     launches = {"count_step": kernel_v3.launches_step}
     standalone = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
                   "window_hash_codes": hash_kernel.launches_codes,
-                  "count_step_v1": kernel_v1.launches_step}
+                  "count_step_v1": kernel_v1.launches_step,
+                  "count_step_v2": kernel_v2.launches_step}
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
           "ntsm count launched an eval kernel")
@@ -802,7 +828,9 @@ def compare_tables(got: str, want: str, what: str) -> int:
     return differ
 
 
-def eval_main_path(mx: np.ndarray, work: str, card: str) -> int:
+def eval_main_path(mx: np.ndarray, work: str, card: str) -> tuple:
+    """Phase 6; returns (pair_stats launches, the count files, the table,
+    its seconds)."""
     import multiprocessing
 
     import torch
@@ -839,7 +867,7 @@ def eval_main_path(mx: np.ndarray, work: str, card: str) -> int:
           f"columns byte-identical to --engine exact ({exact_sec:.1f} s), {differ} score strings "
           f"differ; pair_stats launches {launches}; {sec:.2f} s end to end (CLI incl. load), "
           f"{n_pairs / sec:.0f} pairs/s [{card}]", flush=True)
-    return launches, paths
+    return launches, paths, got, sec
 
 
 class ByteSink:
@@ -1324,7 +1352,7 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
     returns (the fused step's launches, its kernels-line row)."""
     import torch
 
-    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
     from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.count.engine import run_count
     from ntsm_tpu_torch.count.kernel import bucket_probe, make_table_arrays
@@ -1344,7 +1372,8 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
     sec = time.monotonic() - t0
     launches = kernel_v1.launches_step
     others = {"window_hash_codes": hash_kernel.launches_codes, "window_hash": hash_kernel.launches,
-              "probe_count": kernel_v3.launches, "count_step": kernel_v3.launches_step}
+              "probe_count": kernel_v3.launches, "count_step": kernel_v3.launches_step,
+              "count_step_v2": kernel_v2.launches_step}
     check(not any(others.values()), f"the v1 engine launched another count kernel {others}")
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
@@ -1802,7 +1831,7 @@ def api_path(sites: str, fq: str, golden_text: str, n_batches: int, count_files:
     import torch
 
     import ntsm_tpu_torch.api as api
-    from ntsm_tpu_torch.count import hash_kernel, kernel_v3
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
     from ntsm_tpu_torch.count import kernel as kernel_v1
     from ntsm_tpu_torch.eval import pair_kernel
 
@@ -1815,9 +1844,9 @@ def api_path(sites: str, fq: str, golden_text: str, n_batches: int, count_files:
     secs["count"] = time.monotonic() - t0
     step = kernel_v3.launches_step
     others = (hash_kernel.launches, kernel_v3.launches, hash_kernel.launches_codes,
-              kernel_v1.launches_step)
+              kernel_v1.launches_step, kernel_v2.launches_step)
     check(step == n_batches, f"api.count launched the fused step {step} times for {n_batches} batches")
-    check(not any(others), f"api.count launched K1, K4, K2 or the v1 step: {others}")
+    check(not any(others), f"api.count launched K1, K4, K2, the v1 or the v2 step: {others}")
     buf = io.StringIO()
     api.write_counts(buf, table, res)
     check(buf.getvalue() == golden_text, "api.write_counts differs from phase 3's golden counts.txt")
@@ -1848,6 +1877,263 @@ def api_path(sites: str, fq: str, golden_text: str, n_batches: int, count_files:
           f"to eval -a's, pair_stats launches {pair}; merge_counts of 8 byte-identical to eval -e "
           f"-o [{card}]", flush=True)
     return dict(count_step=step, pair_stats=pair, secs=secs)
+
+
+# ---------------------------------------------------------------- phases 19-21
+
+
+def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
+    """Phase 19: the v2 engine on phase 3's input, then the v2 step against
+    its plain version on a random batch and on the all-ones worlds; returns
+    (the step's launches in the engine's run, its kernels-line row)."""
+    import torch
+
+    from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
+    from ntsm_tpu_torch.count import kernel as kernel_v1
+    from ntsm_tpu_torch.count import engine
+    from ntsm_tpu_torch.count.engine import run_count
+    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.experiments.exp_count_kernels import N_TABLE, fused_batch, real_table, split
+    from ntsm_tpu_torch.io.countfile import format_counts
+    from ntsm_tpu_torch.io.fastx import BatchReader
+    from ntsm_tpu_torch.io.sites import build_lookup, load_site_table
+    from ntsm_tpu_torch.options import Options
+
+    table = load_site_table(sites, K, allow_dupes=False)
+    n_batches = sum(1 for _ in BatchReader([fq], k=K, seglen=L, batch=B))
+    # the engine's steps' n_found, read after the run: a batch with more
+    # hits than TOPK is recounted on the host
+    found = []
+
+    def step(*args, **kw):
+        out = kernel_v2.count_step_v2(*args, **kw)
+        found.append(out[1])
+        return out
+
+    reset_launches()
+    engine.count_step_v2 = step
+    t0 = time.monotonic()
+    try:
+        res = run_count(table, [fq], Options(), device=device, version=2)
+        torch.cuda.synchronize()
+    finally:
+        engine.count_step_v2 = kernel_v2.count_step_v2
+    sec = time.monotonic() - t0
+    recounted = sum(int(n) > kernel_v2.TOPK for n in found)
+    launches = kernel_v2.launches_step
+    others = {"count_step": kernel_v3.launches_step, "count_step_v1": kernel_v1.launches_step,
+              "window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
+              "window_hash_codes": hash_kernel.launches_codes, "pair_stats": pair_kernel.launches}
+    check(not any(others.values()), f"the v2 engine launched another kernel {others}")
+    mx, sm = res.site_max_sum(table)
+    got = format_counts(table.site_ids, mx, sm, table.distinct, res.total_kmers, K)
+    check(got == want, "v2: counts.txt differs from phase 3's --engine golden")
+    check(launches == n_batches, f"count_step_v2 launched {launches} times for {n_batches} batches")
+    print(f"phase 19: run_count(version=2) on the card, {res.total_reads} reads in {n_batches} "
+          f"batches of {B} x {L}: counts.txt byte-identical to golden; count_step_v2 launches "
+          f"{launches} = {n_batches} batches, no other kernel; hits a batch "
+          f"{min(int(n) for n in found)}-{max(int(n) for n in found)}, {recounted} batches past "
+          f"TOPK = {kernel_v2.TOPK} recounted on the host; {sec:.2f} s (table build + batches), "
+          f"{res.total_bases / sec / 1e6:.2f} Mbase/s [{card}]", flush=True)
+
+    def step_pair(packed, vbits, keys, vals, n, k, seglen):
+        """The kernel's and the plain version's triples, after a sync."""
+        out_k = kernel_v2.count_step_v2(packed, vbits, keys, vals, k=k, L=seglen, n_kmers=n)
+        out_p = kernel_v2.count_step_v2_plain(packed, vbits, keys, vals, k=k, L=seglen, n_kmers=n)
+        torch.cuda.synchronize()
+        return out_k, out_p
+
+    def triple_err(out_k, out_p) -> float:
+        return max(max_abs_err(out_k[0], out_p[0]),
+                   max_abs_err(torch.stack(out_k[1:]), torch.stack(out_p[1:])))
+
+    # the engine's batch shape on a table of the human site set's size
+    # holding 40,000 of the batch's k-mers (0.5% of its valid windows hit)
+    rng = np.random.default_rng(2)
+    packed, vbits = split(fused_batch(device, rng, K, rows=B, seglen=L), L)
+    h, v = kernel_v2.window_hashes_packed(packed, vbits, K, L)
+    hashes = real_table(h, v, rng, n_real=40_000, n_table=N_TABLE)
+    lookup = build_lookup(hashes, slots=kernel_v2.SLOTS_V2)
+    keys, vals = kernel_v2.make_table_v2(lookup, device)
+    n = hashes.size
+    out_k, out_p = step_pair(packed, vbits, keys, vals, n, K, L)
+    err = triple_err(out_k, out_p)
+    n_found, n_valid = int(out_p[1]), int(out_p[2])
+    check(err == 0.0, f"count_step_v2: the triple differs from plain (found {int(out_k[1])} vs "
+          f"{n_found}, valid {int(out_k[2])} vs {n_valid})")
+    check(0 < n_found <= kernel_v2.TOPK, f"count_step_v2: {n_found} hits, none or past TOPK")
+    ms = device_ms(lambda: kernel_v2.count_step_v2(packed, vbits, keys, vals, k=K, L=L, n_kmers=n))
+    plain_ms = device_ms(lambda: kernel_v2.count_step_v2_plain(packed, vbits, keys, vals, k=K, L=L,
+                                                               n_kmers=n))
+    # bytes: the packed batch in, the 128-byte key row of each distinct
+    # bucket a valid window reaches (read once), the hit ids and the totals
+    # out; operations: the canonical min and hash64 of each valid window
+    # (~25 64-bit integer ones) and its lookup (~10)
+    rows = int(torch.unique(h[v] & (keys.shape[0] - 1)).numel())
+    n_bytes = packed.numel() + vbits.numel() + rows * 128 + n_found * 4 + 16
+    b = bound(n_bytes, n_valid * 35 * 2, OPS32_PER_S)
+    print(f"phase 19: count_step_v2 k={K} B={B} L={L} on {n} site k-mers ({keys.shape[0]} "
+          f"buckets of 16): {n_valid} valid windows, {n_found} found, {rows} distinct buckets; "
+          f"top, n_found and n_valid bit-exact vs plain; kernel {ms:.4f} ms (its sort of the "
+          f"{out_k[0].numel()} ids included), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']}, {n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
+
+    found = {}
+    for case in ("empty", "full", "site"):
+        codes, lengths, hashes1, planted = all_ones_world(case)
+        codes = codes.copy()
+        codes[np.arange(codes.shape[1])[None, :] >= lengths[:, None]] = 4
+        p1, v1 = kernel_v2.pack_batch(codes)
+        k1, v1s = kernel_v2.make_table_v2(build_lookup(hashes1, slots=kernel_v2.SLOTS_V2), device)
+        ok, op = step_pair(torch.from_numpy(p1).to(device), torch.from_numpy(v1).to(device), k1,
+                           v1s, hashes1.size, 32, codes.shape[1])
+        e = triple_err(ok, op)
+        found[case] = int(ok[1])
+        check(e == 0.0, f"count_step_v2 on the all-ones world '{case}' differs from plain")
+        check(found[case] == (planted if case == "site" else 0),
+              f"count_step_v2 found {found[case]} on the all-ones world '{case}'")
+        err = max(err, e)
+    print(f"phase 19: count_step_v2 k=32 on the all-ones worlds: found {found} (golden: 0, 0, "
+          f"8), bit-exact vs plain [{card}]", flush=True)
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def all_ones_world(case: str):
+    """tests/test_torch_cuda.py:all_ones_world, loaded from its file: a
+    `tests` package installed on the machine would shadow the repo's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "ntsm_card_tests", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.all_ones_world(case)
+
+
+def port_cli(args, env=None, timeout: float = 600) -> tuple:
+    """``python -m ntsm_tpu_torch args`` in a process of its own:
+    (stdout bytes, stderr text, wall seconds); exit code 0 required."""
+    import subprocess
+
+    full = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                **(env or {}))
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "ntsm_tpu_torch", *args], env=full, cwd=ROOT,
+                         capture_output=True, timeout=timeout)
+    sec = time.monotonic() - t0
+    check(res.returncode == 0, f"ntsm {' '.join(args[:4])} ... exited {res.returncode}: "
+          f"{res.stderr.decode()[-2000:]}")
+    return res.stdout, res.stderr.decode(), sec
+
+
+def trace_path(sites: str, fq: str, want: str, work: str, card: str) -> float:
+    """Phase 20: ``ntsm count --trace DIR`` on the card; returns the wall
+    seconds of the run without --trace."""
+    from ntsm_tpu_torch.csrc import _DIR
+
+    trace_dir = os.path.join(work, "trace")
+    plain_out, _, plain_sec = port_cli(["count", "-s", sites, fq])
+    out, _, sec = port_cli(["count", "--trace", trace_dir, "-s", sites, fq])
+    check(plain_out.decode() == want, "count (a process of its own) differs from golden")
+    check(out.decode() == want, "count --trace: counts.txt differs from golden")
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"count --trace wrote {len(files)} trace files")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    spans = ("ntsm.count.table", "ntsm.count.wait", "ntsm.count.dispatch", "ntsm.count.drain")
+    check(all(sp in names for sp in spans), f"the trace lacks a stage span: {sorted(spans)}")
+    with open(os.path.join(_DIR, "hash_probe_count.cu")) as fh:
+        check("count_step_kernel(" in fh.read(), "hash_probe_count.cu has no count_step_kernel")
+    steps = [e for e in events if e.get("cat") == "kernel" and "count_step_kernel" in e["name"]]
+    check(steps, "the trace holds no CUDA kernel event of the fused count step")
+    kernel_us = sum(float(e.get("dur", 0)) for e in steps)
+    print(f"phase 20: ntsm count --trace on the card: counts.txt byte-identical to golden; "
+          f"{os.path.getsize(files[0])} trace bytes, {len(events)} events, the four stage spans "
+          f"and {len(steps)} events of count_step_kernel ({kernel_us / 1e3:.3f} ms of kernel "
+          f"time); wall {sec:.2f} s with --trace, {plain_sec:.2f} s without (each a process of "
+          f"its own) [{card}]", flush=True)
+    return plain_sec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def two_ranks(args, prefix=None, timeout: float = 600) -> tuple:
+    """Two ranks of ``ntsm args --distributed`` on the one card (the JAX
+    package's rendezvous variables): (each rank's (exit code, stdout,
+    stderr), wall seconds).  prefix replaces ``python -m ntsm_tpu_torch``.
+    Both processes are waited for, and killed past the time limit."""
+    import subprocess
+
+    port = free_port()
+    cmd = prefix or [sys.executable, "-m", "ntsm_tpu_torch"]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [*cmd, *args, "--distributed"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                 JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
+                 JAX_PROCESS_ID=str(r))) for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=timeout)
+            outs.append((proc.returncode, out, err.decode()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sec = time.monotonic() - t0
+    for r, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"rank {r} of ntsm {' '.join(args[:3])} --distributed exited {rc}: "
+              f"{err[-2000:]}")
+    check(outs[1][1] == b"", "rank 1 wrote to stdout")
+    return outs, sec
+
+
+def distributed_path(sites: str, fq: str, want: str, eval_files: list, eval_table: str,
+                     eval_sec: float, count_sec: float, work: str, card: str) -> None:
+    """Phase 21: --distributed with two ranks on the one card."""
+    rec = 10 + READ_LEN + 3 + READ_LEN + 1  # write_reads' fixed FASTQ record
+    data = np.fromfile(fq, dtype=np.uint8).reshape(-1, rec)
+    parts = []
+    for i, chunk in enumerate(np.array_split(data, 3)):
+        parts.append(os.path.join(work, f"reads_part{i}.fq"))
+        chunk.tofile(parts[-1])
+    outs, sec = two_ranks(["count", "-v", "-s", sites, *parts])
+    check(outs[0][1].decode() == want, "count --distributed: rank 0's stdout differs from golden")
+    shards = [next(ln for ln in err.splitlines() if "counting" in ln) for _, _, err in outs]
+    print(f"phase 21: ntsm count --distributed, 2 ranks on the card over phase 3's reads in 3 "
+          f"files ({'; '.join(shards)}): rank 0's stdout byte-identical to golden, rank 1's "
+          f"empty; wall {sec:.2f} s, one process {count_sec:.2f} s (phase 20) [{card}]", flush=True)
+
+    outs, sec = two_ranks(["eval", "-a", *eval_files])
+    check(outs[0][1].decode() == eval_table,
+          "eval -a --distributed: rank 0's table differs from one process's")
+    from ntsm_tpu_torch.eval.rect import BLOCK_PAIRS, row_blocks
+
+    n_blocks = sum(1 for _ in row_blocks(len(eval_files), BLOCK_PAIRS))
+    small = 4096  # pairs a row block, so that both ranks score blocks
+    prefix = [sys.executable, "-c", "import sys; from ntsm_tpu_torch.eval import rect; "
+              f"rect.BLOCK_PAIRS = {small}; from ntsm_tpu_torch.cli import main; "
+              "sys.exit(main(sys.argv[1:]))"]
+    outs_s, sec_s = two_ranks(["eval", "-a", *eval_files], prefix=prefix)
+    check(outs_s[0][1].decode() == eval_table,
+          "eval -a --distributed (small blocks): rank 0's table differs from one process's")
+    n_small = sum(1 for _ in row_blocks(len(eval_files), small))
+    print(f"phase 21: ntsm eval -a --distributed, 2 ranks on the card over phase 6's "
+          f"{len(eval_files)} files: rank 0's table byte-identical to one process's, rank 1's "
+          f"stdout empty; wall {sec:.2f} s ({n_blocks} row block: rank 0 scores it), one process "
+          f"{eval_sec:.2f} s (phase 6, in-process); with {small}-pair blocks ({n_small} blocks, "
+          f"dealt to both ranks and gathered on rank 0) {sec_s:.2f} s, the same table [{card}]",
+          flush=True)
 
 
 # ---------------------------------------------------------------- processes
@@ -1957,7 +2243,7 @@ def main() -> int:
 
 
 def run_phases(card: str) -> list:
-    """Phases 1-18; returns the kernels line's rows and the summary of the
+    """Phases 1-21; returns the kernels line's rows and the summary of the
     checks that passed."""
     import torch
 
@@ -1996,7 +2282,8 @@ def run_phases(card: str) -> list:
               f"{time.monotonic() - t0:.1f} s", flush=True)
         pair = check_pair_stats(device, cohort, card)
         block = check_pair_block_stats(device, cohort, card)
-        launches["pair_stats"], count_files = eval_main_path(cohort, work, card)
+        launches["pair_stats"], count_files, eval_table, eval_sec = eval_main_path(cohort, work,
+                                                                                  card)
         eval_cohort(device, cohort, card)
         del cohort
         eval_fixtures()
@@ -2030,6 +2317,12 @@ def run_phases(card: str) -> list:
         launches["pair_stats"] += api_run["pair_stats"]
         launches["pair_block_stats"] += panel["launches"][0]
         launches["pair_block_stats_sparse"] += panel["launches"][1]
+        t0 = time.monotonic()
+        launches["count_step_v2"], step_v2 = v2_path(device, sites, fq, golden_text, card)
+        count_sec = trace_path(sites, fq, golden_text, work, card)
+        distributed_path(sites, fq, golden_text, count_files, eval_table, eval_sec, count_sec,
+                         work, card)
+        print(f"phases 19-21: {time.monotonic() - t0:.1f} s in all", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2066,6 +2359,10 @@ def run_phases(card: str) -> list:
              source="ntsm_tpu_torch/csrc/hash_bucket_count.cu",
              replaces="ntsm_tpu/count/pallas_kernel.py:148 + ntsm_tpu/count/kernel.py:52",
              launches=launches["count_step_v1"], **step_v1),
+        dict(name="count_step_v2", route="cuda",
+             source="ntsm_tpu_torch/csrc/hash_bucket_hits.cu",
+             replaces="ntsm_tpu/count/kernel_v2.py:165",
+             launches=launches["count_step_v2"], **step_v2),
         dict(name="gather_p1", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
              replaces="scripts/exp_pallas_gather.py:10", **gathers["p1"]),
         dict(name="gather_p2", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
@@ -2081,7 +2378,10 @@ def run_phases(card: str) -> list:
                "rotation orthonormal, the components the centred matrix times it; 17c eval -p "
                "on the panel = --engine exact with K5 launched and the copy pairs called the "
                "same; 17d the vcf fixtures byte-identical; 17e 96,287 sites' max counts = "
-               "their genotypes; 18 the API = the CLIs and golden, on the card")
+               "their genotypes; 18 the API = the CLIs and golden, on the card; 19 the v2 engine = "
+               "golden and its step bit-exact to its plain version; 20 count --trace = golden, "
+               "with the stage spans and the fused step's kernel events; 21 count and eval -a "
+               "--distributed on 2 ranks = one process")
     return kernels, summary
 
 

@@ -10,7 +10,9 @@ Output contract (byte-compatible):
 
 from __future__ import annotations
 
+import contextlib
 import getopt
+import glob
 import os
 import sys
 import time
@@ -44,11 +46,20 @@ HELP = """Usage: ntsm count -s [FASTA] [OPTION]... [FILES...]
                          interrupted run resumes from it automatically.
       --checkpoint-every = INT
                          batches between snapshots [64].
+      --trace = STR      extension: write a torch.profiler trace of the
+                         count pipeline (its stages, and the card's kernels
+                         and copies) to this directory, as a *.pt.trace.json
+                         that TensorBoard and Perfetto open.
       --seglen = INT     extension: device segment length [256]; batch rows
                          scale inversely so the bases per batch stay
                          constant.
-      --trace, --distributed
-                         not yet ported (exit 1).
+      --distributed      extension: several processes, one GPU each. Joins a
+                         gloo process group (from JAX_COORDINATOR_ADDRESS /
+                         JAX_NUM_PROCESSES / JAX_PROCESS_ID, or torchrun's
+                         MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK),
+                         shards the input files across the ranks, sums the
+                         count vectors, and prints from rank 0 only.
+                         NTSM_DISTRIBUTED=1 is equivalent.
 """
 
 ENGINES = ("cuda", "golden")
@@ -59,6 +70,7 @@ def run(argv) -> int:
     opts = Options()
     engine = "cuda"
     device = "cuda"
+    distributed = bool(os.environ.get("NTSM_DISTRIBUTED"))
     try:
         parsed, files = getopt.gnu_getopt(
             argv,
@@ -128,15 +140,10 @@ def run(argv) -> int:
                 segment_len=L,
                 batch_reads=max(1, opts.batch_reads * 256 // L),
             )
-        elif flag in ("--trace", "--distributed"):
-            print(f"ntsm count: {flag} is not yet ported to ntsm_tpu_torch",
-                  file=sys.stderr)
-            return 1
-    # NTSM_DISTRIBUTED (non-empty) means --distributed, as in ntsm_tpu's CLI
-    if os.environ.get("NTSM_DISTRIBUTED"):
-        print("ntsm count: --distributed (NTSM_DISTRIBUTED) is not yet ported to "
-              "ntsm_tpu_torch", file=sys.stderr)
-        return 1
+        elif flag == "--trace":
+            opts = opts.replace(trace=val)
+        elif flag == "--distributed":
+            distributed = True
 
     die = False
     if opts.k > 32:
@@ -170,18 +177,66 @@ def run(argv) -> int:
     from ntsm_tpu_torch.io.countfile import format_counts
     from ntsm_tpu_torch.io.sites import load_site_table
 
-    if opts.verbose:
-        print(f"Opening {opts.snp}", file=sys.stderr)
-    table = load_site_table(opts.snp, opts.k, allow_dupes=opts.dupes)
+    shield = contextlib.nullcontext()
+    my_files = files
+    if distributed:
+        from ntsm_tpu_torch.parallel import distributed as dist
 
-    if engine == "golden":
-        from ntsm_tpu_torch.count.golden import count_files
+        dist.init_distributed()
+        rank, world = dist.rank(), dist.world_size()
+        if engine == "cuda" and device == "cuda":
+            device = dist.local_device()
+        shield = dist.stdout_shield()
+        my_files = dist.host_file_shard(files)
+        if opts.checkpoint:
+            # per-rank snapshots: each rank checkpoints its own file shard
+            # under a rank-tagged path (the shard's filenames are in the
+            # snapshot signature).  A resume with another world size would
+            # never match the tagged names and would count from zero, so
+            # stale tags are an error.
+            tag = f".rank{rank}of{world}"
+            stale = [p for p in glob.glob(f"{opts.checkpoint}.rank*of*")
+                     if not p.endswith(f"of{world}")]
+            if stale:
+                print(
+                    f"ntsm count: checkpoint {opts.checkpoint} has "
+                    f"snapshots from a different world size "
+                    f"({os.path.basename(stale[0])}); resume with the "
+                    "original process count or delete them",
+                    file=sys.stderr,
+                )
+                return 1
+            opts = opts.replace(checkpoint=opts.checkpoint + tag)
+        if opts.verbose:
+            print(f"ntsm count: process {rank}/{world} counting {len(my_files)}/"
+                  f"{len(files)} files", file=sys.stderr)
 
-        result = count_files(table, files, cov_thresh=opts.cov_thresh)
-        if result.early_term:
-            print("Reached desired (-m) threshold", file=sys.stderr)
-    else:
-        result = run_count(table, files, opts, device=device)
+    with shield:
+        if opts.verbose:
+            print(f"Opening {opts.snp}", file=sys.stderr)
+        table = load_site_table(opts.snp, opts.k, allow_dupes=opts.dupes)
+
+        if engine == "golden":
+            from ntsm_tpu_torch.count.golden import count_files
+
+            result = count_files(table, my_files, cov_thresh=opts.cov_thresh)
+            if result.early_term:
+                print("Reached desired (-m) threshold", file=sys.stderr)
+        else:
+            result = run_count(table, my_files, opts, device=device)
+
+        if distributed:
+            from ntsm_tpu_torch.count.golden import max_counts_threshold
+
+            local_early = result.early_term
+            result = dist.merge_count_results(
+                result, max_counts_thresh=max_counts_threshold(table.n_kmers, opts.cov_thresh))
+            if result.early_term and not local_early:
+                # the merged total crossed -m where this rank's own did not
+                print("Reached desired (-m) threshold", file=sys.stderr)
+
+    if distributed and rank != 0:
+        return 0  # rank 0 owns stdout and the summary
 
     mx, sm = result.site_max_sum(table)
     sys.stdout.write(

@@ -8,9 +8,12 @@ harness); -e merges afterwards (ntSeqMatchEval.cpp:304-341).
 
 from __future__ import annotations
 
+import contextlib
 import getopt
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 from ntsm_tpu_torch.options import Options
@@ -54,16 +57,31 @@ If only a single file is provided general QC information returned.
       --device = STR         extension: cuda (default) or cpu, for the cuda
                              engine. cuda requires a CUDA device; the engine
                              never moves to the CPU on its own.
-      --distributed          not yet ported (exit 1).
+      --distributed          extension: several processes, one GPU each. Joins a
+                             gloo process group (from JAX_COORDINATOR_ADDRESS /
+                             JAX_NUM_PROCESSES / JAX_PROCESS_ID, or torchrun's
+                             variables); every rank loads the count files, the
+                             all-vs-all row blocks are dealt out to the ranks
+                             and gathered on rank 0, which prints (and writes
+                             -e); -p, QC and -b run whole on every rank. The
+                             engine is cuda. NTSM_DISTRIBUTED=1 is equivalent.
 """
 
 ENGINES = ("auto", "exact", "cuda")
 DEVICES = ("cuda", "cpu")
 
 
+class _Discard:
+    """The table sink of the ranks other than 0 under --distributed."""
+
+    def write(self, s) -> int:
+        return len(s)
+
+
 def run(argv) -> int:
     opts = Options()
     device = "cuda"
+    distributed = bool(os.environ.get("NTSM_DISTRIBUTED"))
     try:
         parsed, files = getopt.gnu_getopt(
             argv,
@@ -152,14 +170,7 @@ def run(argv) -> int:
         elif flag == "--device":
             device = val
         elif flag == "--distributed":
-            print("ntsm eval: --distributed is not yet ported to ntsm_tpu_torch",
-                  file=sys.stderr)
-            return 1
-    # NTSM_DISTRIBUTED (non-empty) means --distributed, as in ntsm_tpu's CLI
-    if os.environ.get("NTSM_DISTRIBUTED"):
-        print("ntsm eval: --distributed (NTSM_DISTRIBUTED) is not yet ported to "
-              "ntsm_tpu_torch", file=sys.stderr)
-        return 1
+            distributed = True
 
     die = False
     for f in files:
@@ -194,6 +205,8 @@ def run(argv) -> int:
             "within ~1e-9.",
             file=sys.stderr,
         )
+    if distributed:
+        opts = opts.replace(engine="cuda")  # the distributed path is the device engine
     if opts.engine == "cuda" and device == "cuda" and scores:
         import torch
 
@@ -206,10 +219,37 @@ def run(argv) -> int:
     from ntsm_tpu_torch.cli.count_cmd import _rss_kb
     from ntsm_tpu_torch.eval.model import load_count_data
 
+    shield = contextlib.nullcontext()
+    out = sys.stdout
+    spool = None
+    if distributed:
+        from ntsm_tpu_torch.parallel import distributed as dist
+
+        dist.init_distributed()
+        if device == "cuda" and scores:
+            device = dist.local_device()
+        # every rank loads all count files and runs the same dispatch; the
+        # table is buffered on rank 0 (spooled to disk past 16 MB: an
+        # all-vs-all table is ~1 GB at N = 3202) and copied to stdout at
+        # the end, and the other ranks write into a discarding sink
+        shield = dist.stdout_shield()
+        if dist.rank() == 0:
+            out = spool = tempfile.SpooledTemporaryFile(
+                max_size=16 << 20, mode="w+", encoding="utf-8")
+        else:
+            out = _Discard()
+
     if opts.verbose > 0:
         print("Reading count files", file=sys.stderr)
     data = load_count_data(files, opts)
-    run_eval(data, opts, sys.stdout, device=device)
+    with shield:
+        run_eval(data, opts, out, device=device)
+    if distributed and dist.rank() != 0:
+        return 0
+    if spool is not None:
+        spool.seek(0)
+        shutil.copyfileobj(spool, sys.stdout, 1 << 20)
+        spool.close()
     print(
         f"Time: {time.monotonic() - t0:g} s Memory: {_rss_kb()} kbytes",
         file=sys.stderr,

@@ -4,7 +4,10 @@
 host feed thread and the fused count kernel, described below.  With
 ``version=1`` it runs :func:`run_count_v1`, the unpacked-codes engine (the
 fused v1 count step of count/kernel.py: window hash, bucket probe and
-count in one kernel); the v2 engine is not yet ported.
+count in one kernel); with ``version=2`` it runs :func:`run_count_v2`,
+the hit-list engine (count/kernel_v2.py:count_step_v2: the window hash and
+a 16-slot bucket lookup in one kernel that lists the hit ids, which the
+host turns into counts).
 
 The v3 engine:
 
@@ -27,6 +30,7 @@ be in the totals.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import queue
 import sys
@@ -38,9 +42,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ntsm_tpu_torch.count.golden import CountResult, max_counts_threshold
+from ntsm_tpu_torch.count.golden import CountResult, count_codes_batch, max_counts_threshold
 from ntsm_tpu_torch.count.kernel import count_step, make_table_arrays
-from ntsm_tpu_torch.count.kernel_v2 import pack_batch_fast
+from ntsm_tpu_torch.count.kernel_v2 import (
+    SLOTS_V2,
+    count_step_v2,
+    hits_to_kmer_counts,
+    make_table_v2,
+    pack_batch_fast,
+)
 from ntsm_tpu_torch.count.kernel_v3 import TableV3, count_step_v3
 from ntsm_tpu_torch.io.fastx import BatchReader, ParallelFileReader, _bounded_put
 from ntsm_tpu_torch.io.sites import SiteTable, build_lookup
@@ -77,7 +87,7 @@ def run_count(
     version: int = 3,
 ) -> CountResult:
     """Count the site k-mers of `filenames` on `device` ("cuda" or "cpu")
-    with engine `version` (3, the default, or 1).
+    with engine `version` (3, the default, 2 or 1).
 
     "cuda" needs a CUDA device and runs the hand-written kernels; "cpu"
     runs their plain PyTorch versions.  There is no fallback between the
@@ -88,13 +98,45 @@ def run_count(
     if version == 1:
         return run_count_v1(table, filenames, opts, config, device)
     if version == 2:
-        raise NotImplementedError("run_count: the v2 engine (version=2) is not yet ported")
+        return run_count_v2(table, filenames, opts, config, device)
     if version != 3:
         raise ValueError(f"run_count: no engine version {version}")
     return _run_count_v3(table, filenames, opts, config, device)
 
 
 def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
+    """The v3 engine; with opts.trace, under torch.profiler (CPU activity,
+    and the card's kernels and copies on the card), its stages recorded as
+    the spans ntsm.count.table, .wait (the reader), .dispatch (upload and
+    launch), .drain and .checkpoint, and the trace written to the directory
+    opts.trace when the run ends, on error and after -m too
+    (torch.profiler.tensorboard_trace_handler: a *.pt.trace.json that
+    TensorBoard and Perfetto read; the JAX engine's jax.profiler.trace
+    contract).  Without it no profiler object is made."""
+    if not opts.trace:
+        return _count_v3(table, filenames, opts, config, device, contextlib.nullcontext)
+    from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(opts.trace)):
+        return _count_v3(table, filenames, opts, config, device, record_function)
+
+
+def _count_v3(table, filenames, opts, config, device, span) -> CountResult:
+    """The v3 engine's body; span(name) is a context around each stage."""
+    stage_t = dict.fromkeys(("table", "wait", "dispatch", "drain", "checkpoint"), 0.0)
+
+    @contextlib.contextmanager
+    def stage(name: str):
+        """Time a stage into stage_t (the -v -v budget), inside the span
+        ntsm.count.<name>."""
+        t0 = time.monotonic()
+        with span(f"ntsm.count.{name}"):
+            yield
+        stage_t[name] += time.monotonic() - t0
+
     config = config or EngineConfig(
         batch_reads=opts.batch_reads,
         segment_len=opts.segment_len,
@@ -103,7 +145,8 @@ def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
     )
     k, L = table.k, config.segment_len
     n_kmers = table.n_kmers
-    tab = TableV3.from_hashes(table.kmer_hashes, device)
+    with stage("table"):
+        tab = TableV3.from_hashes(table.kmer_hashes, device)
     counts = torch.zeros(n_kmers + 1, dtype=torch.int32, device=device)
     host_counts = np.zeros(n_kmers, dtype=np.int64)  # restored from a snapshot
     total_kmers = total_hits = total_bases = total_reads = 0
@@ -201,33 +244,29 @@ def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
     prod.start()
     batch_idx = skip_batches
     last_ckpt_idx = skip_batches
-    stage_t = dict(wait=0.0, dispatch=0.0, drain=0.0)  # -v -v stage budget
     try:
         while True:
-            t0 = time.monotonic()
-            item = upload_q.get()
-            stage_t["wait"] += time.monotonic() - t0
+            with stage("wait"):
+                item = upload_q.get()
             if item is sentinel:
                 if prod_err:
                     raise prod_err[0]
                 break
             fused, n_reads, n_bases = item
-            t0 = time.monotonic()
-            f = fused.to(device, non_blocking=True)
-            pending.append(count_step_v3(f[:, : L // 4], f[:, L // 4 :], tab, counts, k, L))
+            with stage("dispatch"):
+                f = fused.to(device, non_blocking=True)
+                pending.append(count_step_v3(f[:, : L // 4], f[:, L // 4 :], tab, counts, k, L))
             batch_idx += 1
             total_bases += n_bases
             total_reads += n_reads
-            stage_t["dispatch"] += time.monotonic() - t0
-            t0 = time.monotonic()
-            while len(pending) >= 2 * window:
-                # drain the older half; the newer half keeps the device busy
-                drain(window)
-                if check_term and total_hits > max_counts:
-                    drain(len(pending))
-                    early = True
-                    break
-            stage_t["drain"] += time.monotonic() - t0
+            with stage("drain"):
+                while len(pending) >= 2 * window:
+                    # drain the older half; the newer half keeps the device busy
+                    drain(window)
+                    if check_term and total_hits > max_counts:
+                        drain(len(pending))
+                        early = True
+                        break
             if early:
                 break
             if config.checkpoint_path and (
@@ -236,17 +275,18 @@ def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
             ):
                 from ntsm_tpu_torch.count.checkpoint import save_snapshot
 
-                drain(len(pending))  # snapshot state = exactly batch_idx batches
-                save_snapshot(
-                    config.checkpoint_path,
-                    sig=sig,
-                    n_batches=batch_idx,
-                    counts=host_counts_now(),
-                    total_kmers=total_kmers,
-                    total_hits=total_hits,
-                    total_bases=total_bases,
-                    total_reads=total_reads,
-                )
+                with stage("checkpoint"):
+                    drain(len(pending))  # snapshot state = exactly batch_idx batches
+                    save_snapshot(
+                        config.checkpoint_path,
+                        sig=sig,
+                        n_batches=batch_idx,
+                        counts=host_counts_now(),
+                        total_kmers=total_kmers,
+                        total_hits=total_hits,
+                        total_bases=total_bases,
+                        total_reads=total_reads,
+                    )
                 last_ckpt_idx = batch_idx
             if opts.verbose > 2 and total_reads >= next_read_mark:
                 next_read_mark = (total_reads // 1_000_000 + 1) * 1_000_000
@@ -267,9 +307,8 @@ def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
                 and batch_idx - skip_batches >= config.fail_after_batches
             ):
                 raise RuntimeError("ntsm: injected failure (fail_after_batches)")
-        t0 = time.monotonic()
-        drain(len(pending))
-        stage_t["drain"] += time.monotonic() - t0
+        with stage("drain"):
+            drain(len(pending))
         if opts.verbose > 1:
             print(
                 f"stage budget: wait {stage_t['wait']:.2f}s "
@@ -356,6 +395,86 @@ def run_count_v1(
         counts=counts[:n_kmers].cpu().numpy().astype(np.int64),
         total_kmers=int(total_kmers),
         total_hits=int(total_hits),
+        total_bases=total_bases,
+        total_reads=total_reads,
+        early_term=early,
+    )
+
+
+def run_count_v2(
+    table: SiteTable,
+    filenames,
+    opts: Options,
+    config: EngineConfig | None = None,
+    device="cuda",
+) -> CountResult:
+    """The v2 engine (ntsm_tpu/count/engine.py:run_count_v2): one read
+    segment a row, each batch 2-bit packed and uploaded as one [B, 3L/8]
+    buffer (pinned, non-blocking on the card), its hit ids listed by
+    count/kernel_v2.py:count_step_v2 on PyTorch's current stream, with one
+    batch in flight.  A drain fetches the batch's two totals, then
+    top[:n_found] only, and adds the hits into host counts through the
+    table's vals (hits_to_kmer_counts); a batch with more hits than its id
+    list holds is recounted on the host (count/golden.py:count_codes_batch).
+    -m is checked after each drain, so a -m run stops on the same batch as
+    the JAX v2 engine.  No checkpoint; -t is ignored, as in the JAX v2."""
+    device = torch.device(device)
+    config = config or EngineConfig(
+        batch_reads=opts.batch_reads, segment_len=opts.segment_len
+    )
+    k, L, n_kmers = table.k, config.segment_len, table.n_kmers
+    lookup = build_lookup(table.kmer_hashes, slots=SLOTS_V2)
+    keys, vals = make_table_v2(lookup, device)
+    sorted_hashes = np.sort(table.kmer_hashes)
+    sort_order = np.argsort(table.kmer_hashes, kind="stable")
+    counts = np.zeros(n_kmers, dtype=np.int64)
+    total_kmers = total_hits = total_bases = total_reads = 0
+    max_counts = max_counts_threshold(n_kmers, opts.cov_thresh)
+    check_term = max_counts != 0 and not math.isinf(max_counts)
+    early = False
+    pin = device.type == "cuda"
+
+    def drain(entry) -> None:
+        nonlocal total_kmers, total_hits, total_bases, total_reads
+        (top, n_found, n_valid), batch = entry
+        nf, nv = torch.stack([n_found, n_valid]).tolist()
+        total_kmers += nv
+        total_bases += batch.n_bases
+        total_reads += batch.n_reads
+        if nf > top.shape[0]:  # more hits than the id list holds: exact host recount
+            hit_idx, _ = count_codes_batch(batch.codes, k, sorted_hashes, sort_order)
+            np.add.at(counts, hit_idx, 1)
+            total_hits += hit_idx.shape[0]
+        else:
+            hits_to_kmer_counts(top[:nf].cpu().numpy(), lookup, n_kmers, counts)
+            total_hits += nf
+
+    reader = BatchReader(filenames, k=k, seglen=L, batch=config.batch_reads)
+    pending = None  # (the step's outputs, its host batch): one batch in flight
+    for batch in reader:
+        packed, vbits = pack_batch_fast(batch.codes)
+        fused = torch.from_numpy(np.concatenate([packed, vbits], axis=1))
+        if pin:
+            fused = fused.pin_memory().to(device, non_blocking=True)
+        out = count_step_v2(fused[:, : L // 4], fused[:, L // 4 :], keys, vals,
+                            k=k, L=L, n_kmers=n_kmers)
+        if pending is not None:
+            drain(pending)
+        pending = (out, batch)
+        if check_term and total_hits > max_counts:
+            early = True
+            break
+    if pending is not None and not early:
+        drain(pending)
+        if check_term:
+            early = total_hits > max_counts
+    if early:
+        print("Reached desired (-m) threshold", file=sys.stderr)
+
+    return CountResult(
+        counts=counts,
+        total_kmers=total_kmers,
+        total_hits=total_hits,
         total_bases=total_bases,
         total_reads=total_reads,
         early_term=early,

@@ -29,6 +29,7 @@ from ntsm_tpu_torch.eval.pca import (
     sq_dists_blocked,
 )
 from ntsm_tpu_torch.options import Options
+from ntsm_tpu_torch.parallel.distributed import rank
 from ntsm_tpu_torch.utils.formats import cpp_to_string
 
 
@@ -142,7 +143,10 @@ def run_eval(data: CountData, opts: Options, out, device="cuda"):
     """Top-level dispatch (ntSeqMatchEval.cpp:304-341).  The device engine
     (opts.engine == "cuda") runs on `device`; its stage times are returned
     (eval/rect.py:compute_score_all_cuda, compute_score_pca_cuda, the
-    latter with the projection's seconds under "project"), else None."""
+    latter with the projection's seconds under "project"), else None.  In
+    a process group (parallel/distributed.py) the all-vs-all blocks are
+    dealt out to the ranks and emitted by rank 0, which alone writes -e's
+    merge file; the other modes run whole on every rank."""
     if data.n_samples == 1:
         cloud = None
         if opts.pca:
@@ -180,6 +184,6 @@ def run_eval(data: CountData, opts: Options, out, device="cuda"):
                          **compute_score_pca_cuda(data, opts, out, cloud, device))
         else:
             compute_score_pca(data, opts, out, cloud)
-    if opts.merge:
+    if opts.merge and rank() == 0:  # under --distributed, rank 0 writes the merge
         merge_counts(data, opts.merge)
     return times

@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ntsm_tpu_torch.eval import pair_kernel
 from ntsm_tpu_torch.eval.emit import _emit_prepared, _load_row_formatter, _pair_columns, _sample_strings
@@ -27,6 +28,7 @@ from ntsm_tpu_torch.eval.exact import DBL_MAX, HEADER
 from ntsm_tpu_torch.eval.model import CountData
 from ntsm_tpu_torch.eval.pca import pair_dist_sq, pca_candidate_arrays, search_radii
 from ntsm_tpu_torch.options import Options
+from ntsm_tpu_torch.parallel.distributed import rank, world_size
 
 SITE_ALIGN = 32  # plane rows padded to 128 bytes; pad sites never count
 BLOCK_PAIRS = 1 << 21  # pairs per row block or -p slice: bounds the fetched block
@@ -96,7 +98,16 @@ def finalize(data: CountData, opts: Options, iu, ju, ints: np.ndarray, sums: np.
 def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
     """All-vs-all output identical in layout to the exact engine's.
     Returns the seconds spent in each stage (upload, score = kernel and
-    fetch, finalize, emit) and the number of row blocks."""
+    fetch, finalize, emit) and the number of row blocks.
+
+    In a process group of W > 1 ranks (parallel/distributed.py; the
+    counterpart of ntsm_tpu/eval/rect_mesh.py), block i of the row_blocks
+    list belongs to rank i % W: each rank scores its own blocks on its own
+    device and sends their statistics to rank 0 (gloo, CPU tensors whose
+    shapes every rank derives from the block), and rank 0 takes the blocks
+    in order and finalizes and emits them as one process does, so the table
+    is byte-identical to one process's.  The other ranks write nothing."""
+    me, world = rank(), world_size()
     out.write(HEADER)
     out.write("\n")
     N = data.n_samples
@@ -110,20 +121,49 @@ def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
     times["upload"] = time.monotonic() - t0
     lib = _load_row_formatter()
     samp_w = _sample_strings(data) if lib is not None else None
-    for r0, r1 in row_blocks(N, BLOCK_PAIRS):
+    sent = []  # this rank's sends to rank 0, waited for at the end
+    for i, (r0, r1) in enumerate(row_blocks(N, BLOCK_PAIRS)):
+        owner = i % world
+        if me not in (0, owner):
+            continue
         t0 = time.monotonic()
-        ints_d, sums_d = pair_kernel.pair_stats(a, b, s, r0, r1, opts.min_cov, data.n_sites)
-        ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+        if owner == me:
+            ints_d, sums_d = pair_kernel.pair_stats(a, b, s, r0, r1, opts.min_cov, data.n_sites)
+            ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+        else:
+            ints, sums = _receive_block(owner, i, pair_kernel.n_block_pairs(N, r0, r1))
         t1 = time.monotonic()
+        times["score"] += t1 - t0
+        if me != 0:
+            sent += _send_block(i, ints, sums)
+            continue
         iu, ju = block_indices(N, r0, r1)
         f3, i9 = finalize(data, opts, iu, ju, ints, sums)
         t2 = time.monotonic()
         _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w)
-        times["score"] += t1 - t0
         times["finalize"] += t2 - t1
         times["emit"] += time.monotonic() - t2
         times["blocks"] += 1
+    for work, _ in sent:
+        work.wait()
     return times
+
+
+def _send_block(i: int, ints: np.ndarray, sums: np.ndarray) -> list:
+    """Send block i's (ints [5, P] int32, sums [2, P] f64) to rank 0; the
+    tag is the block's index.  Returns the two sends' (handle, tensor): the
+    tensors must live until the sends are waited for."""
+    tensors = [torch.from_numpy(np.ascontiguousarray(x)) for x in (ints, sums)]
+    return [(dist.isend(t, dst=0, tag=i), t) for t in tensors]
+
+
+def _receive_block(src: int, i: int, n_pairs: int) -> tuple:
+    """Block i's (ints, sums) from rank src, as numpy arrays."""
+    ints = torch.empty((pair_kernel.N_INTS, n_pairs), dtype=torch.int32)
+    sums = torch.empty((2, n_pairs), dtype=torch.float64)
+    for x in (ints, sums):
+        dist.recv(x, src=src, tag=i)
+    return ints.numpy(), sums.numpy()
 
 
 def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarray,

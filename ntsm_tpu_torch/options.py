@@ -79,6 +79,7 @@ class Options:
     segment_len: int = 256
     checkpoint: str | None = None  # restartable count snapshots
     checkpoint_every: int = 64  # batches between snapshots
+    trace: str | None = None  # count: write a torch.profiler trace to this directory
 
     def replace(self, **kw) -> "Options":
         return dataclasses.replace(self, **kw)

@@ -84,22 +84,6 @@ def test_cli_errors_match_jax_cli(capsys, tmp_path, rng, case):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--trace", "t"], ["--distributed"]])
-def test_unported_flags_exit_1(capsys, flag):
-    rc, _, err = _run([*flag, "-s", str(FIX / "sites.fa"), str(FIX / "sampleA.fq")], capsys)
-    assert rc == 1
-    assert "not yet ported" in err
-
-
-def test_ntsm_distributed_env_exits_1(capsys, monkeypatch):
-    """NTSM_DISTRIBUTED (non-empty) means --distributed, as ntsm_tpu's CLI
-    reads it: the port refuses it instead of running one process."""
-    monkeypatch.setenv("NTSM_DISTRIBUTED", "1")
-    rc, out, err = _run(["-s", str(FIX / "sites.fa"), str(FIX / "sampleA.fq")], capsys)
-    assert rc == 1 and out == ""
-    assert "--distributed" in err and "not yet ported" in err
-
-
 def test_bad_engine_and_device(capsys):
     args = ["-s", str(FIX / "sites.fa"), str(FIX / "sampleA.fq")]
     for extra in (["--engine", "tpu"], ["--device", "tpu"]):

@@ -271,15 +271,6 @@ def test_v1_early_termination_matches_jax_v1(rng, tmp_path, cov_thresh, every):
     assert int(mine.counts.sum()) == mine.total_hits
 
 
-def test_unported_and_unknown_versions_raise(tables):
-    table, _ = tables
-    fq = [str(FIX / "sampleLow.fq")]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_count(table, fq, Options(), device="cpu", version=2)
-    with pytest.raises(ValueError, match="version 4"):
-        run_count(table, fq, Options(), device="cpu", version=4)
-
-
 def test_v1_cuda_without_a_card_raises(tables):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -211,24 +211,6 @@ def test_only_merge_without_merge_matches_jax_cli(capsys):
     assert "cannot be used without --merge" in got.err
 
 
-@pytest.mark.parametrize("flag", [["--distributed"]])
-def test_unported_modes_exit_1(capsys, flag):
-    rc, out, err = _run([*flag, "--device", "cpu", str(FIX / "sampleA_counts.txt"),
-                         str(FIX / "sampleB_counts.txt")], capsys)
-    assert rc == 1 and out == ""
-    assert "not yet ported" in err
-
-
-def test_ntsm_distributed_env_exits_1(capsys, monkeypatch):
-    """NTSM_DISTRIBUTED (non-empty) means --distributed, as ntsm_tpu's CLI
-    reads it: the port refuses it instead of running one process."""
-    monkeypatch.setenv("NTSM_DISTRIBUTED", "1")
-    rc, out, err = _run(["--device", "cpu", str(FIX / "sampleA_counts.txt"),
-                         str(FIX / "sampleB_counts.txt")], capsys)
-    assert rc == 1 and out == ""
-    assert "--distributed" in err and "not yet ported" in err
-
-
 def test_bad_engine_and_device(capsys):
     args = [str(FIX / "sampleA_counts.txt"), str(FIX / "sampleB_counts.txt")]
     for extra in (["--engine", "tpu"], ["--device", "tpu"]):

@@ -133,15 +133,21 @@ result; any failure raises and ends the run with a non-zero exit:
      ``eval -p`` and phase 18's calls join the kernels line's
  19. the v2 path: ``run_count(..., version=2)`` on phase 3's sites and
      reads, one read a row; its counts.txt must be byte-identical to phase
-     3's golden text, the v2 step's launch counter (window hash, 16-slot
-     bucket lookup and the hit list in one kernel) must equal the batch
-     count and no other count or eval kernel may launch; then the v2 step
-     against its plain version, the triple (top, n_found, n_valid)
-     bit-exact, on a random 32768 x 256 batch at k = 19 with a table of
-     the human site set's size holding 40,000 of its k-mers (timed), and on
-     the three all-ones worlds at k = 32 (all_ones_world of
-     tests/test_torch_cuda.py, loaded from its file), where it must find
-     0, 0 and 8 as the golden engine does
+     3's golden text, the v2 step's two launch counters (its lookup: window
+     hash, 16-slot bucket lookup and the binned hit lists in one kernel;
+     its ordering stage) must each equal the batch count and no other
+     count or eval kernel may launch; then the v2 step against its plain
+     version, the triple (top, n_found, n_valid) bit-exact, on a random
+     32768 x 256 batch at k = 19 with a table of the human site set's size
+     holding 40,000 of its k-mers (experiments/exp_v2_step.py: the keys as
+     planes, the engine's layout, and as rows; the lookup and the ordering
+     stage timed apart; the ordering stage against its plain version and
+     torch.sort of the same ids; the bound at 128 B a distinct bucket and
+     at the 32-B sectors these lookups need; under torch.profiler the step
+     runs its two kernels and nothing else), and on the three all-ones
+     worlds at k = 32 (all_ones_world of tests/test_torch_cuda.py, loaded
+     from its file), where it must find 0, 0 and 8 as the golden engine
+     does
  20. ``python -m ntsm_tpu_torch count --trace DIR`` on phase 3's input, a
      process of its own, and the same without --trace: both stdouts
      byte-identical to golden; the trace parses as JSON and holds the four
@@ -488,6 +494,7 @@ def reset_launches() -> None:
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
     kernel_v3.launches_step = kernel_v1.launches_step = kernel_v2.launches_step = 0
+    kernel_v2.launches_order = 0
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
@@ -522,7 +529,8 @@ def main_path(device, work: str, rng, card: str) -> tuple:
     standalone = {"window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
                   "window_hash_codes": hash_kernel.launches_codes,
                   "count_step_v1": kernel_v1.launches_step,
-                  "count_step_v2": kernel_v2.launches_step}
+                  "count_step_v2": kernel_v2.launches_step,
+                  "count_step_v2_order": kernel_v2.launches_order}
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
           "ntsm count launched an eval kernel")
@@ -1373,7 +1381,8 @@ def v1_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
     launches = kernel_v1.launches_step
     others = {"window_hash_codes": hash_kernel.launches_codes, "window_hash": hash_kernel.launches,
               "probe_count": kernel_v3.launches, "count_step": kernel_v3.launches_step,
-              "count_step_v2": kernel_v2.launches_step}
+              "count_step_v2": kernel_v2.launches_step,
+              "count_step_v2_order": kernel_v2.launches_order}
     check(not any(others.values()), f"the v1 engine launched another count kernel {others}")
     check(pair_kernel.launches == pair_kernel.launches_block
           == pair_kernel.launches_block_sparse == 0,
@@ -1844,7 +1853,7 @@ def api_path(sites: str, fq: str, golden_text: str, n_batches: int, count_files:
     secs["count"] = time.monotonic() - t0
     step = kernel_v3.launches_step
     others = (hash_kernel.launches, kernel_v3.launches, hash_kernel.launches_codes,
-              kernel_v1.launches_step, kernel_v2.launches_step)
+              kernel_v1.launches_step, kernel_v2.launches_step, kernel_v2.launches_order)
     check(step == n_batches, f"api.count launched the fused step {step} times for {n_batches} batches")
     check(not any(others), f"api.count launched K1, K4, K2, the v1 or the v2 step: {others}")
     buf = io.StringIO()
@@ -1885,7 +1894,8 @@ def api_path(sites: str, fq: str, golden_text: str, n_batches: int, count_files:
 def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
     """Phase 19: the v2 engine on phase 3's input, then the v2 step against
     its plain version on a random batch and on the all-ones worlds; returns
-    (the step's launches in the engine's run, its kernels-line row)."""
+    ((the lookup's, the ordering stage's launches in the engine's run), the
+    kernels-line rows of the step and of its ordering stage)."""
     import torch
 
     from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
@@ -1893,7 +1903,7 @@ def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
     from ntsm_tpu_torch.count import engine
     from ntsm_tpu_torch.count.engine import run_count
     from ntsm_tpu_torch.eval import pair_kernel
-    from ntsm_tpu_torch.experiments.exp_count_kernels import N_TABLE, fused_batch, real_table, split
+    from ntsm_tpu_torch.experiments import exp_v2_step
     from ntsm_tpu_torch.io.countfile import format_counts
     from ntsm_tpu_torch.io.fastx import BatchReader
     from ntsm_tpu_torch.io.sites import build_lookup, load_site_table
@@ -1920,7 +1930,7 @@ def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
         engine.count_step_v2 = kernel_v2.count_step_v2
     sec = time.monotonic() - t0
     recounted = sum(int(n) > kernel_v2.TOPK for n in found)
-    launches = kernel_v2.launches_step
+    launches, launches_order = kernel_v2.launches_step, kernel_v2.launches_order
     others = {"count_step": kernel_v3.launches_step, "count_step_v1": kernel_v1.launches_step,
               "window_hash": hash_kernel.launches, "probe_count": kernel_v3.launches,
               "window_hash_codes": hash_kernel.launches_codes, "pair_stats": pair_kernel.launches}
@@ -1928,18 +1938,21 @@ def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
     mx, sm = res.site_max_sum(table)
     got = format_counts(table.site_ids, mx, sm, table.distinct, res.total_kmers, K)
     check(got == want, "v2: counts.txt differs from phase 3's --engine golden")
-    check(launches == n_batches, f"count_step_v2 launched {launches} times for {n_batches} batches")
+    check(launches == launches_order == n_batches, f"count_step_v2 launched its lookup {launches} "
+          f"and its ordering stage {launches_order} times for {n_batches} batches")
     print(f"phase 19: run_count(version=2) on the card, {res.total_reads} reads in {n_batches} "
           f"batches of {B} x {L}: counts.txt byte-identical to golden; count_step_v2 launches "
-          f"{launches} = {n_batches} batches, no other kernel; hits a batch "
+          f"{launches} (lookup) and {launches_order} (ordering stage) = {n_batches} batches, no "
+          f"other kernel; hits a batch "
           f"{min(int(n) for n in found)}-{max(int(n) for n in found)}, {recounted} batches past "
           f"TOPK = {kernel_v2.TOPK} recounted on the host; {sec:.2f} s (table build + batches), "
           f"{res.total_bases / sec / 1e6:.2f} Mbase/s [{card}]", flush=True)
 
-    def step_pair(packed, vbits, keys, vals, n, k, seglen):
-        """The kernel's and the plain version's triples, after a sync."""
-        out_k = kernel_v2.count_step_v2(packed, vbits, keys, vals, k=k, L=seglen, n_kmers=n)
-        out_p = kernel_v2.count_step_v2_plain(packed, vbits, keys, vals, k=k, L=seglen, n_kmers=n)
+    def step_pair(packed, vbits, tab, k, seglen):
+        """The kernels' and the plain version's triples, after a sync."""
+        out_k = kernel_v2.count_step_v2(packed, vbits, tab, k=k, L=seglen)
+        out_p = kernel_v2.count_step_v2_plain(packed, vbits, tab.keys, tab.vals, k=k,
+                                              L=seglen, n_kmers=tab.n_kmers)
         torch.cuda.synchronize()
         return out_k, out_p
 
@@ -1948,35 +1961,45 @@ def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
                    max_abs_err(torch.stack(out_k[1:]), torch.stack(out_p[1:])))
 
     # the engine's batch shape on a table of the human site set's size
-    # holding 40,000 of the batch's k-mers (0.5% of its valid windows hit)
-    rng = np.random.default_rng(2)
-    packed, vbits = split(fused_batch(device, rng, K, rows=B, seglen=L), L)
-    h, v = kernel_v2.window_hashes_packed(packed, vbits, K, L)
-    hashes = real_table(h, v, rng, n_real=40_000, n_table=N_TABLE)
-    lookup = build_lookup(hashes, slots=kernel_v2.SLOTS_V2)
-    keys, vals = kernel_v2.make_table_v2(lookup, device)
+    # holding 40,000 of the batch's k-mers (experiments/exp_v2_step.py):
+    # the step on the keys as planes (the engine's) and as rows, its two
+    # kernels timed apart, the ordering stage against its plain version and
+    # torch.sort of the same ids
+    packed, vbits, h, v, hashes, lookup = exp_v2_step.v2_batch(device)
     n = hashes.size
-    out_k, out_p = step_pair(packed, vbits, keys, vals, n, K, L)
+    tab = kernel_v2.make_table_v2(lookup, n, device)
+    out_k, out_p = step_pair(packed, vbits, tab, K, L)
     err = triple_err(out_k, out_p)
     n_found, n_valid = int(out_p[1]), int(out_p[2])
     check(err == 0.0, f"count_step_v2: the triple differs from plain (found {int(out_k[1])} vs "
           f"{n_found}, valid {int(out_k[2])} vs {n_valid})")
     check(0 < n_found <= kernel_v2.TOPK, f"count_step_v2: {n_found} hits, none or past TOPK")
-    ms = device_ms(lambda: kernel_v2.count_step_v2(packed, vbits, keys, vals, k=K, L=L, n_kmers=n))
-    plain_ms = device_ms(lambda: kernel_v2.count_step_v2_plain(packed, vbits, keys, vals, k=K, L=L,
-                                                               n_kmers=n))
-    # bytes: the packed batch in, the 128-byte key row of each distinct
-    # bucket a valid window reaches (read once), the hit ids and the totals
-    # out; operations: the canonical min and hash64 of each valid window
-    # (~25 64-bit integer ones) and its lookup (~10)
-    rows = int(torch.unique(h[v] & (keys.shape[0] - 1)).numel())
-    n_bytes = packed.numel() + vbits.numel() + rows * 128 + n_found * 4 + 16
-    b = bound(n_bytes, n_valid * 35 * 2, OPS32_PER_S)
-    print(f"phase 19: count_step_v2 k={K} B={B} L={L} on {n} site k-mers ({keys.shape[0]} "
-          f"buckets of 16): {n_valid} valid windows, {n_found} found, {rows} distinct buckets; "
-          f"top, n_found and n_valid bit-exact vs plain; kernel {ms:.4f} ms (its sort of the "
-          f"{out_k[0].numel()} ids included), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
-          f"ms ({b['bound_by']}, {n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
+    cap = out_k[0].numel()
+    bd = exp_v2_step.bounds(packed, vbits, h, v, tab.keys, tab.vals, n, cap)
+    plain_ms = device_ms(lambda: kernel_v2.count_step_v2_plain(
+        packed, vbits, tab.keys, tab.vals, k=K, L=L, n_kmers=n))
+    del tab
+    rows, ok = exp_v2_step.measure(device, packed, vbits, lookup, n)
+    check(ok, f"count_step_v2 or its ordering stage differs from plain on a layout: {rows}")
+    planes, by_rows = (next(r for r in rows if r["layout"] == x) for x in ("planes", "rows"))
+    names = planes["kernels"]
+    check(len(names) == 2 and all("bucket_hits_kernel" in x or "order_hits_kernel" in x
+                                  for x in names),
+          f"count_step_v2 ran other kernels than its lookup and ordering stage: {names}")
+    print(f"phase 19: count_step_v2 k={K} B={B} L={L} on {n} site k-mers ({lookup.n_buckets} "
+          f"buckets of 16): {n_valid} valid windows, {n_found} found, {bd['distinct_buckets']} "
+          f"distinct buckets, {bd['sectors_needed']} 32-B sectors needed; top, n_found and "
+          f"n_valid bit-exact vs plain ({plain_ms:.4f} ms) on both layouts, the ordering "
+          f"stage's array equal to order_hits_plain's; keys as planes: step "
+          f"{min(planes['step']):.4f} ms (lookup "
+          f"{min(planes['lookup']):.4f}, ordering stage {min(planes['order']):.4f}); keys as "
+          f"rows: step {min(by_rows['step']):.4f} ms (lookup {min(by_rows['lookup']):.4f}); "
+          f"the ordering stage's plain version {min(planes['order_plain']):.4f} ms, torch.sort "
+          f"of the {cap} ids {min(planes['sort']):.4f} ms; bound {bd['sectors']['bound_ms']:.4f} "
+          f"ms at the sectors needed ({bd['sectors']['bound_by']}, "
+          f"{bd['sectors']['bytes'] / 1e6:.1f} MB), {bd['rows']['bound_ms']:.4f} ms at 128 B a "
+          f"bucket ({bd['rows']['bytes'] / 1e6:.1f} MB); kernels under torch.profiler {names} "
+          f"[{card}]", flush=True)
 
     found = {}
     for case in ("empty", "full", "site"):
@@ -1984,9 +2007,10 @@ def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
         codes = codes.copy()
         codes[np.arange(codes.shape[1])[None, :] >= lengths[:, None]] = 4
         p1, v1 = kernel_v2.pack_batch(codes)
-        k1, v1s = kernel_v2.make_table_v2(build_lookup(hashes1, slots=kernel_v2.SLOTS_V2), device)
-        ok, op = step_pair(torch.from_numpy(p1).to(device), torch.from_numpy(v1).to(device), k1,
-                           v1s, hashes1.size, 32, codes.shape[1])
+        t1 = kernel_v2.make_table_v2(build_lookup(hashes1, slots=kernel_v2.SLOTS_V2),
+                                     hashes1.size, device)
+        ok, op = step_pair(torch.from_numpy(p1).to(device), torch.from_numpy(v1).to(device), t1,
+                           32, codes.shape[1])
         e = triple_err(ok, op)
         found[case] = int(ok[1])
         check(e == 0.0, f"count_step_v2 on the all-ones world '{case}' differs from plain")
@@ -1995,7 +2019,15 @@ def v2_path(device, sites: str, fq: str, want: str, card: str) -> tuple:
         err = max(err, e)
     print(f"phase 19: count_step_v2 k=32 on the all-ones worlds: found {found} (golden: 0, 0, "
           f"8), bit-exact vs plain [{card}]", flush=True)
-    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    step_row = dict(max_abs_err=err, ms=min(planes["step"]), plain_ms=plain_ms, library_ms=None,
+                    lookup_ms=min(planes["lookup"]), order_ms=min(planes["order"]),
+                    rows_layout_ms=min(by_rows["step"]),
+                    bound_ms_rows=bd["rows"]["bound_ms"], **{
+                        k_: bd["sectors"][k_] for k_ in ("bound_ms", "bound_by")})
+    order_row = dict(max_abs_err=planes["order_err"], ms=min(planes["order"]),
+                     plain_ms=min(planes["order_plain"]), library_ms=min(planes["sort"]),
+                     **{k_: bd["order"][k_] for k_ in ("bound_ms", "bound_by")})
+    return (launches, launches_order), step_row, order_row
 
 
 def all_ones_world(case: str):
@@ -2318,7 +2350,8 @@ def run_phases(card: str) -> list:
         launches["pair_block_stats"] += panel["launches"][0]
         launches["pair_block_stats_sparse"] += panel["launches"][1]
         t0 = time.monotonic()
-        launches["count_step_v2"], step_v2 = v2_path(device, sites, fq, golden_text, card)
+        (launches["count_step_v2"], launches["count_step_v2_order"]), step_v2, order_v2 = v2_path(
+            device, sites, fq, golden_text, card)
         count_sec = trace_path(sites, fq, golden_text, work, card)
         distributed_path(sites, fq, golden_text, count_files, eval_table, eval_sec, count_sec,
                          work, card)
@@ -2363,6 +2396,10 @@ def run_phases(card: str) -> list:
              source="ntsm_tpu_torch/csrc/hash_bucket_hits.cu",
              replaces="ntsm_tpu/count/kernel_v2.py:165",
              launches=launches["count_step_v2"], **step_v2),
+        dict(name="count_step_v2_order", route="cuda",
+             source="ntsm_tpu_torch/csrc/hash_bucket_hits.cu",
+             replaces="ntsm_tpu/count/kernel_v2.py:182",
+             launches=launches["count_step_v2_order"], **order_v2),
         dict(name="gather_p1", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
              replaces="scripts/exp_pallas_gather.py:10", **gathers["p1"]),
         dict(name="gather_p2", route="cuda", source="ntsm_tpu_torch/csrc/gather.cu",
@@ -2379,7 +2416,8 @@ def run_phases(card: str) -> list:
                "on the panel = --engine exact with K5 launched and the copy pairs called the "
                "same; 17d the vcf fixtures byte-identical; 17e 96,287 sites' max counts = "
                "their genotypes; 18 the API = the CLIs and golden, on the card; 19 the v2 engine = "
-               "golden and its step bit-exact to its plain version; 20 count --trace = golden, "
+               "golden and its step (lookup and ordering stage, the only kernels it runs) bit-exact "
+               "to its plain version; 20 count --trace = golden, "
                "with the stage spans and the fused step's kernel events; 21 count and eval -a "
                "--distributed on 2 ranks = one process")
     return kernels, summary

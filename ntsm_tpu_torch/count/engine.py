@@ -6,8 +6,8 @@ host feed thread and the fused count kernel, described below.  With
 fused v1 count step of count/kernel.py: window hash, bucket probe and
 count in one kernel); with ``version=2`` it runs :func:`run_count_v2`,
 the hit-list engine (count/kernel_v2.py:count_step_v2: the window hash and
-a 16-slot bucket lookup in one kernel that lists the hit ids, which the
-host turns into counts).
+a 16-slot bucket lookup in one kernel that lists the hit ids, and an
+ordering stage that sorts them; the host turns them into counts).
 
 The v3 engine:
 
@@ -411,11 +411,12 @@ def run_count_v2(
     """The v2 engine (ntsm_tpu/count/engine.py:run_count_v2): one read
     segment a row, each batch 2-bit packed and uploaded as one [B, 3L/8]
     buffer (pinned, non-blocking on the card), its hit ids listed by
-    count/kernel_v2.py:count_step_v2 on PyTorch's current stream, with one
-    batch in flight.  A drain fetches the batch's two totals, then
-    top[:n_found] only, and adds the hits into host counts through the
-    table's vals (hits_to_kmer_counts); a batch with more hits than its id
-    list holds is recounted on the host (count/golden.py:count_codes_batch).
+    count/kernel_v2.py:count_step_v2 on PyTorch's current stream (its table
+    a TableV2, built once), with one batch in flight.  A drain fetches the
+    batch's two totals, then top[:n_found] only, and adds the hits into
+    host counts through the table's vals (hits_to_kmer_counts); a batch
+    with more hits than its id list holds is recounted on the host
+    (count/golden.py:count_codes_batch).
     -m is checked after each drain, so a -m run stops on the same batch as
     the JAX v2 engine.  No checkpoint; -t is ignored, as in the JAX v2."""
     device = torch.device(device)
@@ -424,7 +425,7 @@ def run_count_v2(
     )
     k, L, n_kmers = table.k, config.segment_len, table.n_kmers
     lookup = build_lookup(table.kmer_hashes, slots=SLOTS_V2)
-    keys, vals = make_table_v2(lookup, device)
+    table_v2 = make_table_v2(lookup, n_kmers, device)
     sorted_hashes = np.sort(table.kmer_hashes)
     sort_order = np.argsort(table.kmer_hashes, kind="stable")
     counts = np.zeros(n_kmers, dtype=np.int64)
@@ -456,8 +457,7 @@ def run_count_v2(
         fused = torch.from_numpy(np.concatenate([packed, vbits], axis=1))
         if pin:
             fused = fused.pin_memory().to(device, non_blocking=True)
-        out = count_step_v2(fused[:, : L // 4], fused[:, L // 4 :], keys, vals,
-                            k=k, L=L, n_kmers=n_kmers)
+        out = count_step_v2(fused[:, : L // 4], fused[:, L // 4 :], table_v2, k=k, L=L)
         if pending is not None:
             drain(pending)
         pending = (out, batch)

@@ -9,13 +9,16 @@ are held to, and what their wrappers run for CPU tensors.
 
 The v2 step (:func:`count_step_v2`, the v2 engine's, count/engine.py:
 run_count_v2) hashes a packed batch's windows, looks each valid one up in a
-bucket of SLOTS_V2 = 16 keys (one 128-byte row) and returns the hit ids
-``(bucket << 4 | slot) + 1`` in descending order, zero-padded, with the
-batch's hit and valid-window counts; the host turns the ids into counts
-through the vals plane (:func:`hits_to_kmer_counts`).  On the card it is
-one kernel, ``csrc/hash_bucket_hits.cu``; its plain version is
-:func:`count_step_v2_plain`.  One difference from the JAX step, on purpose:
-a match on an empty slot (key EMPTY_KEY, val n_kmers) is a miss.  At k = 32
+bucket of SLOTS_V2 = 16 keys and returns the hit ids ``(bucket << 4 | slot)
++ 1`` in descending order, zero-padded, with the batch's hit and
+valid-window counts; the host turns the ids into counts through the vals
+plane (:func:`hits_to_kmer_counts`).  Its table is a :class:`TableV2`
+(:func:`make_table_v2`), which also holds the keys as the kernel reads them
+and the step's scratch.  On the card the step is two kernels of
+``csrc/hash_bucket_hits.cu``, the lookup and the ordering stage; its plain
+version is :func:`count_step_v2_plain`, the ordering stage's
+:func:`order_hits_plain`.  One difference from the JAX step, on purpose: a
+match on an empty slot (key EMPTY_KEY, val n_kmers) is a miss.  At k = 32
 the one canonical 32-mer whose hash is all ones matches every empty slot,
 and the JAX step counts it as found, after which its hits_to_kmer_counts
 indexes counts[n_kmers] and raises IndexError; here it is counted as
@@ -34,9 +37,12 @@ from ntsm_tpu_torch.core.hash import hash64_torch, unsigned_key
 
 TOPK = 65536  # hit ids a v2 step returns at most (ntsm_tpu/count/kernel_v2.py)
 SLOTS_V2 = 16  # keys a bucket of the v2 table: one 128-byte row
+SECTOR_SLOTS = 4  # keys a 32-byte sector, the unit the lookup reads
 EMPTY_KEY = -1  # io/sites.EMPTY_KEY (all ones) as int64 bits
+LAYOUTS = ("planes", "rows")  # TableV2.sectors: the kernel's key layouts
 
-launches_step = 0  # the v2 count step, count_step_v2
+launches_step = 0  # the v2 step's lookup kernel (count_step_v2, lookup_launch)
+launches_order = 0  # its ordering stage (count_step_v2, order_launch)
 
 
 def pack_batch(codes: np.ndarray):
@@ -141,18 +147,77 @@ def window_hashes_codes_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int
     return hash_windows(codes & 3, (codes <= 3) & inside, k)
 
 
-def make_table_v2(lookup, device="cpu"):
-    """(keys [n_buckets, SLOTS_V2] int64 hash bits, vals [n_buckets,
-    SLOTS_V2] int32 k-mer index, n_kmers where empty) on `device`, from the
-    host table of io/sites.build_lookup(hashes, slots=SLOTS_V2).  The JAX
-    step takes the keys alone; the vals tell an empty slot from the site
-    k-mer whose hash is all ones."""
+class TableV2:
+    """The v2 step's table on one device.
+
+    keys     [n_buckets, 16] int64  the uint64 hash bits, EMPTY_KEY where
+             empty (io/sites.build_lookup's rows: what the plain version and
+             the JAX step read)
+    vals     [n_buckets, 16] int32  k-mer index, n_kmers where empty
+    sectors  the keys as the lookup kernel reads them, 32-byte sectors of 4
+             slots, sector p of bucket b at element b * bucket_stride + p *
+             plane_stride: layout "planes" (the default) is [4, n_buckets, 4],
+             plane p holding slots 4p .. 4p + 3 of every bucket, so that the
+             first plane, which nearly every lookup needs, is a quarter of
+             the keys; "rows" is the keys themselves.
+
+    The lookup stops at a bucket's first empty slot, so the table must fill
+    each bucket's slots from 0 up, with every key in its own bucket (h &
+    (n_buckets - 1)), as build_lookup does; the constructor checks it.  The
+    step's scratch (the unsorted hit list and the counters the ordering
+    stage sets back to zero) is made at the first step on the card; the
+    steps on one table run one after another on a stream, as the engine's
+    do."""
+
+    def __init__(self, keys, vals, n_kmers: int, layout: str = "planes"):
+        _check_table_v2(keys, vals, n_kmers)
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+        n_buckets = keys.shape[0]
+        empty = (keys == EMPTY_KEY) & (vals == n_kmers)
+        if bool((empty[:, :-1] & ~empty[:, 1:]).any()):
+            raise ValueError("a bucket holds a key after an empty slot")
+        own = (keys & (n_buckets - 1)) == torch.arange(n_buckets, device=keys.device)[:, None]
+        if bool((~empty & ~own).any()):
+            raise ValueError("a key lies outside its bucket h & (n_buckets - 1)")
+        self.keys, self.vals, self.n_kmers = keys, vals, n_kmers
+        self.n_buckets = n_buckets
+        if layout == "planes":
+            self.sectors = keys.view(n_buckets, SLOTS_V2 // SECTOR_SLOTS, SECTOR_SLOTS) \
+                .transpose(0, 1).contiguous()
+            self.strides = (SECTOR_SLOTS, SECTOR_SLOTS * n_buckets)
+        else:
+            self.sectors = keys
+            self.strides = (SLOTS_V2, SECTOR_SLOTS)
+        if self.sectors.data_ptr() % 16:
+            raise ValueError("the key sectors must be 16-byte aligned")
+        self._ids = self._counters = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    def scratch(self, n_ids: int, counter_bytes: int):
+        """(ids [>= n_ids] int32, counters [counter_bytes] uint8, zero at
+        first): the step's scratch on the card."""
+        if self._counters is None:
+            self._counters = torch.zeros(counter_bytes, dtype=torch.uint8, device=self.device)
+        if self._ids is None or self._ids.numel() < n_ids:
+            self._ids = torch.empty(max(n_ids, 1), dtype=torch.int32, device=self.device)
+        return self._ids, self._counters
+
+
+def make_table_v2(lookup, n_kmers: int, device="cpu", layout: str = "planes") -> TableV2:
+    """The :class:`TableV2` on `device` of the host table of
+    io/sites.build_lookup(hashes, slots=SLOTS_V2), n_kmers = hashes.size.
+    The JAX step takes the keys alone; the vals tell an empty slot from the
+    site k-mer whose hash is all ones."""
     keys = torch.from_numpy(np.ascontiguousarray(lookup.keys).view(np.int64)).to(device)
     vals = torch.from_numpy(np.ascontiguousarray(lookup.vals, dtype=np.int32)).to(device)
-    return keys, vals
+    return TableV2(keys, vals, n_kmers, layout)
 
 
-def _check_table_v2(keys, vals, n_kmers: int, device) -> None:
+def _check_table_v2(keys, vals, n_kmers: int) -> None:
     if keys.dtype != torch.int64 or vals.dtype != torch.int32:
         raise TypeError(f"keys must be int64 and vals int32, got {keys.dtype}, {vals.dtype}")
     if keys.dim() != 2 or keys.shape[1] != SLOTS_V2 or vals.shape != keys.shape:
@@ -161,13 +226,15 @@ def _check_table_v2(keys, vals, n_kmers: int, device) -> None:
     n_buckets = keys.shape[0]
     if n_buckets < 1 or n_buckets & (n_buckets - 1):
         raise ValueError(f"n_buckets must be a power of two, got {n_buckets}")
-    if n_buckets * SLOTS_V2 > 1 << 31:
+    if n_buckets * SLOTS_V2 >= 1 << 31:
         raise ValueError(f"{n_buckets} buckets: a hit id (bucket << 4 | slot) + 1 "
                          "would not fit int32")
     if n_kmers < 0:
         raise ValueError(f"n_kmers must be >= 0, got {n_kmers}")
-    if keys.device != device or vals.device != device:
-        raise ValueError("packed, vbits, keys and vals must be on one device")
+    if keys.device != vals.device:
+        raise ValueError("keys and vals must be on one device")
+    if not (keys.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("keys and vals must be contiguous")
 
 
 def count_step_v2_plain(packed, vbits, keys, vals, *, k: int, L: int, n_kmers: int):
@@ -191,50 +258,109 @@ def count_step_v2_plain(packed, vbits, keys, vals, *, k: int, L: int, n_kmers: i
     return top, found.sum(), valid.sum()
 
 
-def count_step_v2(packed, vbits, keys, vals, *, k: int, L: int, n_kmers: int):
+def count_step_v2(packed, vbits, table: TableV2, *, k: int, L: int):
     """One v2 step: (top [min(TOPK, B W)] int32, the hit ids (bucket << 4 |
     slot) + 1 in descending order and zero-padded; n_found, n_valid: int64
     0-d tensors), on the inputs' device.
 
     packed [B, L/4] and vbits [B, L/8] are uint8 with contiguous rows (they
-    may be column slices of one fused upload), keys/vals from
-    :func:`make_table_v2`.  CPU tensors run :func:`count_step_v2_plain`;
-    CUDA tensors launch ``csrc/hash_bucket_hits.cu`` or raise.  The kernel
-    stores the first min(n_found, TOPK) hits it finds, and this wrapper
-    sorts them (torch.sort of the TOPK ids, on the card), so that `top`
-    equals the plain version's whenever n_found <= TOPK; past that it holds
-    TOPK of the hits, not the largest, and the engine recounts the batch on
-    the host without reading it, as the JAX engine does."""
-    global launches_step
+    may be column slices of one fused upload), `table` a :class:`TableV2` on
+    their device.  CPU tensors run :func:`count_step_v2_plain`; CUDA tensors
+    launch the two kernels of ``csrc/hash_bucket_hits.cu`` or raise: the
+    lookup (:func:`lookup_launch`), which stores the first min(n_found,
+    TOPK) hits it finds, and the ordering stage (:func:`order_launch`),
+    which sorts them, so that `top` equals the plain version's whenever
+    n_found <= TOPK; past that it holds TOPK of the hits, not the largest,
+    and the engine recounts the batch on the host without reading it, as
+    the JAX engine does."""
     # count/hash_kernel.py imports this module
     from ntsm_tpu_torch.count.hash_kernel import check_packed
 
     check_packed(packed, vbits, k, L)
-    _check_table_v2(keys, vals, n_kmers, packed.device)
+    if table.device != packed.device:
+        raise ValueError("packed, vbits and the table must be on one device")
     if packed.device.type == "cpu":
-        return count_step_v2_plain(packed, vbits, keys, vals, k=k, L=L, n_kmers=n_kmers)
+        return count_step_v2_plain(packed, vbits, table.keys, table.vals, k=k, L=L,
+                                   n_kmers=table.n_kmers)
     if packed.device.type != "cuda":
         raise ValueError(f"count_step_v2: unsupported device {packed.device}")
-    for name, t in (("keys", keys), ("vals", vals)):
-        if not t.is_contiguous():
-            raise ValueError(f"count_step_v2: {name} must be contiguous")
-    if keys.data_ptr() % 16:
-        raise ValueError("count_step_v2: keys rows must be 16-byte aligned")
+    cap = min(TOPK, packed.shape[0] * (L - k + 1))
+    lookup_launch(packed, vbits, table, k=k, L=L, cap=cap)
+    return order_launch(table, cap)
+
+
+def _list_stride(cap: int) -> int:
+    """The stride of the bins' hit lists in the ids scratch: cap rounded up
+    to 16 bytes (csrc/hash_bucket_hits.cu:list_stride)."""
+    return (cap + 3) // 4 * 4
+
+
+def _card_scratch(table: TableV2, cap: int):
+    if table.device.type != "cuda":
+        raise ValueError(f"the v2 kernels take CUDA tensors, not {table.device}")
     lib = csrc.load()
-    B = packed.shape[0]
-    cap = min(TOPK, B * (L - k + 1))
-    ids = torch.zeros(cap, dtype=torch.int32, device=packed.device)
-    totals = torch.zeros(2, dtype=torch.int64, device=packed.device)
-    rc = lib.ntsm_count_step_v2(
+    n_ids = lib.ntsm_v2_bins() * _list_stride(cap)
+    return (lib, *table.scratch(n_ids, lib.ntsm_v2_counter_bytes()))
+
+
+def lookup_launch(packed, vbits, table: TableV2, *, k: int, L: int, cap: int) -> None:
+    """The step's first kernel (card only; count_step_v2 checks the
+    inputs): the ids of the batch's first `cap` hits into the table's
+    scratch, each in its bin's list (the ordering stage's bins), with
+    n_found, n_valid and the bins' counts; :func:`order_launch` reads them
+    and sets the counts back to zero."""
+    global launches_step
+    lib, ids, counters = _card_scratch(table, cap)
+    rc = lib.ntsm_v2_lookup(
         ctypes.c_void_p(packed.data_ptr()), packed.stride(0),
-        ctypes.c_void_p(vbits.data_ptr()), vbits.stride(0), B, L, k,
-        ctypes.c_void_p(keys.data_ptr()), ctypes.c_void_p(vals.data_ptr()), keys.shape[0],
-        n_kmers, ctypes.c_void_p(ids.data_ptr()), cap, ctypes.c_void_p(totals.data_ptr()),
+        ctypes.c_void_p(vbits.data_ptr()), vbits.stride(0), packed.shape[0], L, k,
+        ctypes.c_void_p(table.sectors.data_ptr()), *table.strides,
+        ctypes.c_void_p(table.vals.data_ptr()), table.n_buckets, table.n_kmers,
+        ctypes.c_void_p(ids.data_ptr()), cap, ctypes.c_void_p(counters.data_ptr()),
         csrc.stream_ptr(packed.device),
     )
-    csrc.check(lib, rc, "count_step_v2")
+    csrc.check(lib, rc, "count_step_v2 (lookup)")
     launches_step += 1
-    return torch.sort(ids, descending=True).values, totals[0], totals[1]
+
+
+def order_launch(table: TableV2, cap: int):
+    """The step's second kernel (card only), after :func:`lookup_launch`:
+    (top [cap] int32, n_found, n_valid), the stored ids sorted descending
+    and zero-padded, as :func:`order_hits_plain` orders them."""
+    global launches_order
+    lib, ids, counters = _card_scratch(table, cap)
+    top = torch.empty(cap, dtype=torch.int32, device=table.device)
+    out = torch.empty(2, dtype=torch.int64, device=table.device)
+    rc = lib.ntsm_v2_order(ctypes.c_void_p(ids.data_ptr()), cap,
+                           ctypes.c_void_p(counters.data_ptr()), table.n_buckets,
+                           ctypes.c_void_p(top.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                           csrc.stream_ptr(table.device))
+    if rc != 0:
+        counters.zero_()  # the lookup's counts, which this launch would have cleared
+    csrc.check(lib, rc, "count_step_v2 (ordering stage)")
+    launches_order += 1
+    return top, out[0], out[1]
+
+
+def stored_hits(table: TableV2, cap: int) -> torch.Tensor:
+    """The ids :func:`lookup_launch` stored, its bins' lists one after
+    another (card only, between the two launches; it waits for the card).
+    The counters are csrc/hash_bucket_hits.cu's: totals [2] u64, then the
+    bins' counts [n_bins] u32."""
+    lib, ids, counters = _card_scratch(table, cap)
+    n_bins, stride = lib.ntsm_v2_bins(), _list_stride(cap)
+    counts = counters[16:16 + 4 * n_bins].view(torch.int32).tolist()
+    return torch.cat([ids[b * stride: b * stride + c] for b, c in enumerate(counts)])
+
+
+def order_hits_plain(ids: torch.Tensor, n_found: int, cap: int) -> torch.Tensor:
+    """The ordering stage in plain PyTorch: [cap] int32, the first
+    min(n_found, cap) of the unsorted hit ids in descending order, then
+    zeros."""
+    n = min(int(n_found), cap)
+    top = torch.zeros(cap, dtype=torch.int32, device=ids.device)
+    top[:n] = torch.sort(ids[:n], descending=True).values
+    return top
 
 
 def hits_to_kmer_counts(hit_ids: np.ndarray, lookup, n_kmers: int, counts: np.ndarray) -> int:

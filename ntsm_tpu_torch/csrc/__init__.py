@@ -7,7 +7,8 @@ few seconds; nothing here includes PyTorch's headers) and binds the entry
 points with ctypes.  Each entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; the wrappers (``ntsm_tpu_torch.count.hash_kernel``,
 ``count.kernel``, whose fused v1 count step the v1 engine calls,
-``count.kernel_v2``, whose v2 count step the v2 engine calls,
+``count.kernel_v2``, whose v2 count step (a lookup and an ordering
+stage) the v2 engine calls,
 ``count.kernel_v3``, whose fused count step the v3 engine calls,
 ``eval.pair_kernel``, ``experiments.gather``, ``experiments.exp_dma_probe``
 and ``experiments.exp_count_kernels``) raise on
@@ -123,8 +124,14 @@ def load():
         lib.ntsm_count_step.argtypes = [P, L, P, L, I, I, I, P, P, P, L, I, P, P, P]
         lib.ntsm_count_step_v1.restype = I
         lib.ntsm_count_step_v1.argtypes = [P, L, P, I, I, I, P, P, L, I, P, P, P]
-        lib.ntsm_count_step_v2.restype = I
-        lib.ntsm_count_step_v2.argtypes = [P, L, P, L, I, I, I, P, P, L, I, P, L, P, P]
+        lib.ntsm_v2_lookup.restype = I
+        lib.ntsm_v2_lookup.argtypes = [P, L, P, L, I, I, I, P, L, L, P, L, I, P, L, P, P]
+        lib.ntsm_v2_order.restype = I
+        lib.ntsm_v2_order.argtypes = [P, L, P, L, P, P, P]
+        lib.ntsm_v2_counter_bytes.restype = I
+        lib.ntsm_v2_counter_bytes.argtypes = []
+        lib.ntsm_v2_bins.restype = I
+        lib.ntsm_v2_bins.argtypes = []
         lib.ntsm_l2_window.restype = I
         lib.ntsm_l2_window.argtypes = [P, L, P, P]
         lib.ntsm_pair_stats.restype = I

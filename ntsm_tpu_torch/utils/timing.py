@@ -56,25 +56,34 @@ def device_ms(fn, iters: int = 20) -> float:
     the time the host has queued the call, the interval holds host time: the
     call is queued again behind a spin 4x longer, and at a 2 s spin this
     raises RuntimeError (fn waits for the device)."""
-    fn()
+    return device_ms_parts([fn], iters)[0]
+
+
+def device_ms_parts(fns, iters: int = 20) -> list:
+    """:func:`device_ms` of calls made one after another, each timed apart:
+    the median device time of each fns[i]() in ms, with an event between
+    consecutive calls (for the parts of a step, e.g. its kernels)."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    for fn in fns:
+        fn()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     spin_ms = 2.0 * host_ms + 0.5
     times = []
     while len(times) < iters:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
         _spin(spin_ms)
-        start.record()
-        fn()
-        end.record()
-        caught_up = start.query()
+        events[0].record()
+        for fn, end in zip(fns, events[1:]):
+            fn()
+            end.record()
+        caught_up = events[0].query()
         torch.cuda.synchronize()
         if not caught_up:
-            times.append(start.elapsed_time(end))
+            times.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
         elif spin_ms >= 2000.0:
             raise RuntimeError(
                 "device_ms: the device caught up with the host while one call was "
@@ -82,7 +91,7 @@ def device_ms(fn, iters: int = 20) -> float:
                 "for such a call")
         else:
             spin_ms = min(2000.0, 4 * spin_ms)
-    return statistics.median(times)
+    return [statistics.median(t[i] for t in times) for i in range(len(fns))]
 
 
 def event_ms(fn, iters: int = 15) -> float:

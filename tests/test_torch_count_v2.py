@@ -61,9 +61,9 @@ def _table(rng, codes: np.ndarray, k: int, n_real: int, n_other: int) -> np.ndar
 
 def _port_step(codes, hashes, k):
     packed, vbits = kernel_v2.pack_batch(codes)
-    keys, vals = kernel_v2.make_table_v2(build_lookup(hashes, slots=kernel_v2.SLOTS_V2))
-    return kernel_v2.count_step_v2(torch.from_numpy(packed), torch.from_numpy(vbits), keys, vals,
-                                   k=k, L=codes.shape[1], n_kmers=hashes.size)
+    table = kernel_v2.make_table_v2(build_lookup(hashes, slots=kernel_v2.SLOTS_V2), hashes.size)
+    return kernel_v2.count_step_v2(torch.from_numpy(packed), torch.from_numpy(vbits), table,
+                                   k=k, L=codes.shape[1])
 
 
 def _jax_step(codes, hashes, k):
@@ -155,9 +155,10 @@ def test_all_ones_kmer_counts_as_golden(case):
 
 
 @pytest.mark.parametrize("case", ["packed_dtype", "k", "keys_dtype", "vals_shape", "slots",
-                                  "n_buckets", "device"])
+                                  "n_buckets", "device", "table_device"])
 def test_count_step_v2_checks(case):
-    """The step's input checks raise before any launch."""
+    """The step's input checks (the table's in TableV2) raise before any
+    launch."""
     L, k = 64, 19
     packed = torch.zeros((4, L // 4), dtype=torch.uint8)
     vbits = torch.zeros((4, L // 8), dtype=torch.uint8)
@@ -179,8 +180,11 @@ def test_count_step_v2_checks(case):
         keys, vals = keys[:6], vals[:6]
     elif case == "device":
         keys = keys.to("meta")
+    elif case == "table_device":
+        packed, vbits = packed.to("meta"), vbits.to("meta")
     with pytest.raises(err):
-        kernel_v2.count_step_v2(packed, vbits, keys, vals, **kw)
+        kernel_v2.count_step_v2(packed, vbits, kernel_v2.TableV2(keys, vals, kw.pop("n_kmers")),
+                                **kw)
 
 
 def _totals(r):

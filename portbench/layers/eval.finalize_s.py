@@ -1,0 +1,8 @@
+"""eval.finalize_s (s/pass): run_eval's stage time 'finalize' a pass (host
+clock, eval/rect.py:compute_score_all_cuda)."""
+
+from portbench.tracefile import stage_mean
+
+
+def read(ctx):
+    return stage_mean(ctx, "finalize")

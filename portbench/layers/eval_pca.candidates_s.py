@@ -1,0 +1,8 @@
+"""eval_pca.candidates_s (s/pass): run_eval's stage time 'candidates' a -p pass (host
+clock, eval/driver.py and eval/rect.py:compute_score_pca_cuda)."""
+
+from portbench.tracefile import stage_mean
+
+
+def read(ctx):
+    return stage_mean(ctx, "candidates")

@@ -30,7 +30,6 @@ be in the totals.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import queue
 import sys
@@ -55,6 +54,7 @@ from ntsm_tpu_torch.count.kernel_v3 import TableV3, count_step_v3
 from ntsm_tpu_torch.io.fastx import BatchReader, ParallelFileReader, _bounded_put
 from ntsm_tpu_torch.io.sites import SiteTable, build_lookup
 from ntsm_tpu_torch.options import Options
+from ntsm_tpu_torch.utils import spans
 from ntsm_tpu_torch.utils.formats import cpp_general
 
 
@@ -69,6 +69,12 @@ class EngineConfig:
 
 
 UPLOAD_DEPTH = 3  # batches the producer thread may run ahead
+# The v3 engine's stages: the consumer's (the site table's build, waiting
+# on the feed, upload and launch, the diag drains, snapshots), the
+# producer's (waiting on the reader, the pinned buffer, the 2-bit pack into
+# it, waiting on the full upload queue) and each -t reader thread's parse.
+COUNT_STAGES = ("table", "wait", "dispatch", "drain", "checkpoint",
+                "read", "pin", "pack", "put", "parse")
 
 
 def _used_rows(lengths: np.ndarray) -> int:
@@ -105,38 +111,38 @@ def run_count(
 
 
 def _run_count_v3(table, filenames, opts, config, device) -> CountResult:
-    """The v3 engine; with opts.trace, under torch.profiler (CPU activity,
-    and the card's kernels and copies on the card), its stages recorded as
-    the spans ntsm.count.table, .wait (the reader), .dispatch (upload and
-    launch), .drain and .checkpoint, and the trace written to the directory
-    opts.trace when the run ends, on error and after -m too
-    (torch.profiler.tensorboard_trace_handler: a *.pt.trace.json that
-    TensorBoard and Perfetto read; the JAX engine's jax.profiler.trace
-    contract).  Without it no profiler object is made."""
+    """The v3 engine, its stages timed by a stage recorder (utils/spans.py)
+    into CountResult.stages.  With opts.trace it runs under torch.profiler
+    (CPU activity, and the card's kernels and copies on the card), its
+    stages recorded as the spans ntsm.count.<stage> (COUNT_STAGES; the
+    feed's producer and reader threads on their own thread ids), and the
+    trace written to the directory opts.trace when the run ends, on error
+    and after -m too (a *.pt.trace.json that TensorBoard and Perfetto read;
+    the JAX engine's jax.profiler.trace contract).  Without it no profiler
+    object is made."""
     if not opts.trace:
-        return _count_v3(table, filenames, opts, config, device, contextlib.nullcontext)
-    from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+        return _count_v3(table, filenames, opts, config, device,
+                         spans.Recorder("count", COUNT_STAGES))
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(opts.trace)):
-        return _count_v3(table, filenames, opts, config, device, record_function)
+    rec = None
+
+    def ready(prof) -> None:
+        path = spans.export_trace(prof, opts.trace)
+        if rec is not None:
+            rec.write_into(path)
+
+    with profile(activities=activities, on_trace_ready=ready):
+        rec = spans.Recorder("count", COUNT_STAGES)
+        return _count_v3(table, filenames, opts, config, device, rec)
 
 
-def _count_v3(table, filenames, opts, config, device, span) -> CountResult:
-    """The v3 engine's body; span(name) is a context around each stage."""
-    stage_t = dict.fromkeys(("table", "wait", "dispatch", "drain", "checkpoint"), 0.0)
-
-    @contextlib.contextmanager
-    def stage(name: str):
-        """Time a stage into stage_t (the -v -v budget), inside the span
-        ntsm.count.<name>."""
-        t0 = time.monotonic()
-        with span(f"ntsm.count.{name}"):
-            yield
-        stage_t[name] += time.monotonic() - t0
-
+def _count_v3(table, filenames, opts, config, device, rec) -> CountResult:
+    """The v3 engine's body; rec (a spans.Recorder) times its stages."""
+    stage = rec.stage
     config = config or EngineConfig(
         batch_reads=opts.batch_reads,
         segment_len=opts.segment_len,
@@ -184,7 +190,7 @@ def _count_v3(table, filenames, opts, config, device, span) -> CountResult:
     if n_threads > 1 and not config.checkpoint_path:
         # thread-per-file-group fan-out (the reference's -t semantics,
         # FingerPrint.hpp:47)
-        reader = ParallelFileReader(filenames, threads=n_threads, **rkw)
+        reader = ParallelFileReader(filenames, threads=n_threads, recorder=rec, **rkw)
     else:
         if n_threads > 1:
             print(
@@ -219,14 +225,24 @@ def _count_v3(table, filenames, opts, config, device, span) -> CountResult:
     def _producer():
         it = iter(reader)
         try:
-            for n, batch in enumerate(it, 1):
+            n = 0
+            while True:
+                with stage("read"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                n += 1
                 if n <= skip_batches:
                     continue  # deterministic reader: parse-only skip on resume
                 rows = _used_rows(batch.lengths)
-                packed, vbits = pack_batch_fast(batch.codes[:rows])
-                fused = torch.empty((rows, 3 * L // 8), dtype=torch.uint8, pin_memory=pin)
-                np.concatenate([packed, vbits], axis=1, out=fused.numpy())
-                if not _bounded_put(upload_q, stop, (fused, batch.n_reads, batch.n_bases)):
+                with stage("pin"):
+                    fused = torch.empty((rows, 3 * L // 8), dtype=torch.uint8, pin_memory=pin)
+                with stage("pack"):
+                    packed, vbits = pack_batch_fast(batch.codes[:rows])
+                    np.concatenate([packed, vbits], axis=1, out=fused.numpy())
+                with stage("put"):
+                    put = _bounded_put(upload_q, stop, (fused, batch.n_reads, batch.n_bases))
+                if not put:
                     return
         except BaseException as e:  # surfaced on the consumer side
             prod_err.append(e)
@@ -309,19 +325,15 @@ def _count_v3(table, filenames, opts, config, device, span) -> CountResult:
                 raise RuntimeError("ntsm: injected failure (fail_after_batches)")
         with stage("drain"):
             drain(len(pending))
-        if opts.verbose > 1:
-            print(
-                f"stage budget: wait {stage_t['wait']:.2f}s "
-                f"dispatch {stage_t['dispatch']:.2f}s "
-                f"drain {stage_t['drain']:.2f}s "
-                f"({batch_idx - skip_batches} batches)",
-                file=sys.stderr,
-            )
     finally:
         # unblock the producer (it may be parked on a full queue) and wait
         # for it to close its reader
         stop.set()
         prod.join(timeout=10)
+    stages = rec.times(batches=batch_idx - skip_batches)
+    if opts.verbose > 1:
+        print("stage budget: " + " ".join(f"{k} {stages[k]:.2f}s" for k in COUNT_STAGES)
+              + f" ({stages['batches']} batches)", file=sys.stderr)
     if check_term and not early:
         early = total_hits > max_counts
     if early:
@@ -334,6 +346,7 @@ def _count_v3(table, filenames, opts, config, device, span) -> CountResult:
         total_bases=total_bases,
         total_reads=total_reads,
         early_term=early,
+        stages=stages,
     )
 
 

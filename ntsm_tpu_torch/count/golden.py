@@ -10,7 +10,7 @@ the parity oracle for the device pipeline.  Used by tests and available via
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -27,6 +27,9 @@ class CountResult:
     total_bases: int  # all read bases, including non-ACGT
     total_reads: int
     early_term: bool
+    # seconds of each stage of the v3 engine (count/engine.py:COUNT_STAGES,
+    # summed over its threads) and its batch count; empty from the others
+    stages: dict = field(default_factory=dict, compare=False)
 
     def site_max_sum(self, table: SiteTable):
         """Per-site, per-allele max and sum (FingerPrint.hpp:270-311)."""

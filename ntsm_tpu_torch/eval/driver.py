@@ -12,7 +12,6 @@ afterwards.
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 
@@ -30,7 +29,15 @@ from ntsm_tpu_torch.eval.pca import (
 )
 from ntsm_tpu_torch.options import Options
 from ntsm_tpu_torch.parallel.distributed import rank
+from ntsm_tpu_torch.utils import spans
 from ntsm_tpu_torch.utils.formats import cpp_to_string
+
+
+# The -p projection's stages (utils/spans.py, area "eval"): project, and in
+# eval/pca.py:project_pcs's row-block loop the contiguous copies of a
+# block's count rows, their quantize and the product with the rotation;
+# the loads of the centers and the rotation are project's own time.
+PROJECT_STAGES = ("project", "project.copy", "project.quantize", "project.matmul")
 
 
 def compute_score_pca(data: CountData, opts: Options, out, cloud: np.ndarray) -> None:
@@ -143,7 +150,9 @@ def run_eval(data: CountData, opts: Options, out, device="cuda"):
     """Top-level dispatch (ntSeqMatchEval.cpp:304-341).  The device engine
     (opts.engine == "cuda") runs on `device`; its stage times are returned
     (eval/rect.py:compute_score_all_cuda, compute_score_pca_cuda, the
-    latter with the projection's seconds under "project"), else None.  In
+    latter with the projection's, PROJECT_STAGES), else None.  Each stage
+    is a span ntsm.eval.<stage> while torch.profiler traces
+    (utils/spans.py).  In
     a process group (parallel/distributed.py) the all-vs-all blocks are
     dealt out to the ranks and emitted by rank 0, which alone writes -e's
     merge file; the other modes run whole on every rank."""
@@ -172,18 +181,17 @@ def run_eval(data: CountData, opts: Options, out, device="cuda"):
         else:
             exact.compute_score_all(data, opts, out)
     else:
-        t0 = time.monotonic()
-        cloud = project_pcs(data, opts)
-        project_s = time.monotonic() - t0
-        if opts.debug:
-            compute_score_pca_debug(data, opts, out, cloud)
-        elif opts.engine == "cuda":
-            from ntsm_tpu_torch.eval.rect import compute_score_pca_cuda
+        with spans.recording("eval", PROJECT_STAGES) as rec:
+            with rec.stage("project"):
+                cloud = project_pcs(data, opts)
+            if opts.debug:
+                compute_score_pca_debug(data, opts, out, cloud)
+            elif opts.engine == "cuda":
+                from ntsm_tpu_torch.eval.rect import compute_score_pca_cuda
 
-            times = dict(project=project_s,
-                         **compute_score_pca_cuda(data, opts, out, cloud, device))
-        else:
-            compute_score_pca(data, opts, out, cloud)
+                times = compute_score_pca_cuda(data, opts, out, cloud, device)
+            else:
+                compute_score_pca(data, opts, out, cloud)
     if opts.merge and rank() == 0:  # under --distributed, rank 0 writes the merge
         merge_counts(data, opts.merge)
     return times

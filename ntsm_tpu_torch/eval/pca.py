@@ -25,6 +25,7 @@ import numpy as np
 
 from ntsm_tpu_torch.eval.model import CountData
 from ntsm_tpu_torch.options import Options
+from ntsm_tpu_torch.utils import spans
 
 DBL_MAX = np.finfo(np.float64).max
 
@@ -150,13 +151,31 @@ def _project_rows(sc: _ProjScratch, ab, bb, normv, rotT, mc, out) -> None:
     thresholds), zero missing sites, subtract centers, rotate.  ab/bb:
     [m, L] integer count rows; out: [m, dim] f64.  The arithmetic is the
     reference's projectPCs (:173-210), see project_pcs."""
+    valsm = sc.vals[: ab.shape[0]]
+    with spans.stage("project.quantize"):
+        # one native sweep where it applies, bitwise the f64 vals of the
+        # numpy form
+        if not (valsm.dtype == np.float64 and _quantize_vals_native(ab, bb, normv, mc, valsm)):
+            _quantize_vals_numpy(sc, ab, bb, normv, mc)
+    with spans.stage("project.matmul"):
+        if valsm.dtype == np.float64:
+            np.matmul(valsm, rotT, out=out)
+        else:
+            # the reference's exact type semantics (projectPCs :173-210 +
+            # std::inner_product<double>): vals[j] is a DOUBLE (the q - center
+            # long-double subtraction rounds once on store), and the
+            # accumulator is a DOUBLE re-rounded after every (double x long
+            # double) product-add; an all-long-double matmul with one final
+            # cast differs in the last f64 ulp at cohort scale
+            _project_exact_rows(valsm.astype(np.float64), rotT, out)
+
+
+def _quantize_vals_numpy(sc: _ProjScratch, ab, bb, normv, mc) -> None:
+    """The quantized, centered values of one row block into sc.vals[:m]
+    (f64 or long double), in numpy passes over the reused buffers."""
     m = ab.shape[0]
     cam, cbm, denm, gm = sc.ca[:m], sc.cb[:m], sc.den[:m], sc.g[:m]
     valsm, keepm, lowm = sc.vals[:m], sc.keep[:m], sc.low[:m]
-    if valsm.dtype == np.float64 and _quantize_vals_native(ab, bb, normv, mc, valsm):
-        # one native sweep, bitwise the f64 vals of the numpy form below
-        np.matmul(valsm, rotT, out=out)
-        return
     # ca/cb = where(count > mc, count, 0) as f64 (exact small ints)
     np.copyto(cam, ab)
     np.greater(ab, mc, out=keepm)
@@ -183,16 +202,6 @@ def _project_rows(sc: _ProjScratch, ab, bb, normv, rotT, mc, out) -> None:
     np.subtract(qm, normv[None, :], out=valsm)
     np.equal(denm, 0.0, out=lowm)
     np.copyto(valsm, 0.0, where=lowm)
-    if valsm.dtype == np.float64:
-        np.matmul(valsm, rotT, out=out)
-    else:
-        # the reference's exact type semantics (projectPCs :173-210 +
-        # std::inner_product<double>): vals[j] is a DOUBLE (the q - center
-        # long-double subtraction rounds once on store), and the
-        # accumulator is a DOUBLE re-rounded after every (double x long
-        # double) product-add; an all-long-double matmul with one final
-        # cast differs in the last f64 ulp at cohort scale
-        _project_exact_rows(valsm.astype(np.float64), rotT, out)
 
 
 def _project_exact_rows(vals64: np.ndarray, rotT: np.ndarray, out) -> None:
@@ -231,7 +240,9 @@ def project_pcs(data: CountData, opts: Options, fast: bool | None = None) -> np.
     cloud is the JAX package's bit for bit on the same inputs.
 
     Row-blocked into reused scratch buffers (_ProjScratch); each block's
-    count rows are copied contiguous so the native quantize takes them."""
+    count rows are copied contiguous so the native quantize takes them.
+    Inside a stage recorder (run_eval), the copies, the quantize and the
+    product are its stages project.copy, .quantize and .matmul."""
     if fast is None:
         fast = opts.engine == "cuda"
     norm = load_norm_values(opts.norm)
@@ -255,8 +266,9 @@ def project_pcs(data: CountData, opts: Options, fast: bool | None = None) -> np.
     sc = _ProjScratch(blk, L, fast)
     for r0 in range(0, N, blk):
         r1 = min(r0 + blk, N)
-        _project_rows(sc, np.ascontiguousarray(a[r0:r1]), np.ascontiguousarray(b[r0:r1]),
-                      normv, rotT, mc, cloud[r0:r1])
+        with spans.stage("project.copy"):
+            ab, bb = np.ascontiguousarray(a[r0:r1]), np.ascontiguousarray(b[r0:r1])
+        _project_rows(sc, ab, bb, normv, rotT, mc, cloud[r0:r1])
     return cloud
 
 

@@ -16,8 +16,6 @@ first.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -29,9 +27,18 @@ from ntsm_tpu_torch.eval.model import CountData
 from ntsm_tpu_torch.eval.pca import pair_dist_sq, pca_candidate_arrays, search_radii
 from ntsm_tpu_torch.options import Options
 from ntsm_tpu_torch.parallel.distributed import rank, world_size
+from ntsm_tpu_torch.utils import spans
 
 SITE_ALIGN = 32  # plane rows padded to 128 bytes; pad sites never count
 BLOCK_PAIRS = 1 << 21  # pairs per row block or -p slice: bounds the fetched block
+# The stages of the device engine (utils/spans.py, area "eval"): samples is
+# the per-sample columns of the rows, formatted once; score is launch (the
+# kernel's enqueue) plus fetch (the block's .cpu(), which waits for the
+# kernel and the copy); -p adds candidates (radii plus search) and tiles
+# (the host plan of each slice).
+ALL_STAGES = ("upload", "samples", "score", "launch", "fetch", "finalize", "emit")
+PCA_STAGES = ("candidates", "candidates.radii", "candidates.search", "upload", "samples",
+              "tiles", "score", "launch", "fetch", "finalize", "emit")
 
 
 def device_planes(data: CountData, device) -> tuple:
@@ -97,8 +104,8 @@ def finalize(data: CountData, opts: Options, iu, ju, ints: np.ndarray, sums: np.
 
 def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
     """All-vs-all output identical in layout to the exact engine's.
-    Returns the seconds spent in each stage (upload, score = kernel and
-    fetch, finalize, emit) and the number of row blocks.
+    Returns the seconds spent in each stage (ALL_STAGES: upload, samples,
+    score = launch and fetch, finalize, emit) and the number of row blocks.
 
     In a process group of W > 1 ranks (parallel/distributed.py; the
     counterpart of ntsm_tpu/eval/rect_mesh.py), block i of the row_blocks
@@ -111,42 +118,43 @@ def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
     out.write(HEADER)
     out.write("\n")
     N = data.n_samples
-    times = dict(upload=0.0, score=0.0, finalize=0.0, emit=0.0, blocks=0)
+    rec = spans.recorder("eval", ALL_STAGES)
+    blocks = 0
     if N < 2:
-        return times
-    t0 = time.monotonic()
-    a, b, s = device_planes(data, device)
-    if a.is_cuda:
-        torch.cuda.synchronize(a.device)
-    times["upload"] = time.monotonic() - t0
-    lib = _load_row_formatter()
-    samp_w = _sample_strings(data) if lib is not None else None
+        return rec.times(blocks=blocks)
+    with rec.stage("upload"):
+        a, b, s = device_planes(data, device)
+        if a.is_cuda:
+            torch.cuda.synchronize(a.device)
+    with rec.stage("samples"):
+        lib = _load_row_formatter()
+        samp_w = _sample_strings(data) if lib is not None else None
     sent = []  # this rank's sends to rank 0, waited for at the end
     for i, (r0, r1) in enumerate(row_blocks(N, BLOCK_PAIRS)):
         owner = i % world
         if me not in (0, owner):
             continue
-        t0 = time.monotonic()
-        if owner == me:
-            ints_d, sums_d = pair_kernel.pair_stats(a, b, s, r0, r1, opts.min_cov, data.n_sites)
-            ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
-        else:
-            ints, sums = _receive_block(owner, i, pair_kernel.n_block_pairs(N, r0, r1))
-        t1 = time.monotonic()
-        times["score"] += t1 - t0
+        with rec.stage("score"):
+            if owner == me:
+                with rec.stage("launch"):
+                    ints_d, sums_d = pair_kernel.pair_stats(a, b, s, r0, r1, opts.min_cov,
+                                                            data.n_sites)
+                with rec.stage("fetch"):
+                    ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+            else:
+                ints, sums = _receive_block(owner, i, pair_kernel.n_block_pairs(N, r0, r1))
         if me != 0:
             sent += _send_block(i, ints, sums)
             continue
-        iu, ju = block_indices(N, r0, r1)
-        f3, i9 = finalize(data, opts, iu, ju, ints, sums)
-        t2 = time.monotonic()
-        _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w)
-        times["finalize"] += t2 - t1
-        times["emit"] += time.monotonic() - t2
-        times["blocks"] += 1
+        with rec.stage("finalize"):
+            iu, ju = block_indices(N, r0, r1)
+            f3, i9 = finalize(data, opts, iu, ju, ints, sums)
+        with rec.stage("emit"):
+            _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w)
+        blocks += 1
     for work, _ in sent:
         work.wait()
-    return times
+    return rec.times(blocks=blocks)
 
 
 def _send_block(i: int, ints: np.ndarray, sums: np.ndarray) -> list:
@@ -173,45 +181,43 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
     engine's (eval/driver.py:compute_score_pca), scored on `device` in
     slices of at most BLOCK_PAIRS, each planned on the host from the host
     list (pair_kernel.plan_pair_blocks).  Returns the seconds spent in each
-    stage (candidates, upload, tiles = the plans, score = kernel and fetch,
-    finalize, emit) and the number of candidate pairs."""
-    times = dict(candidates=0.0, upload=0.0, tiles=0.0, score=0.0, finalize=0.0, emit=0.0,
-                 pairs=0)
-    t0 = time.monotonic()
-    radii = search_radii(data, opts)
-    out.write(HEADER)
-    out.write("\n")
-    ii_all, jj_all = pca_candidate_arrays(cloud, radii, opts.dim)
+    stage (PCA_STAGES: candidates, upload, samples, tiles = the plans,
+    score = launch and fetch, finalize, emit) and the number of candidate
+    pairs; inside run_eval's recorder, the projection's stages too."""
+    rec = spans.recorder("eval", PCA_STAGES)
+    with rec.stage("candidates"):
+        with rec.stage("candidates.radii"):
+            radii = search_radii(data, opts)
+        out.write(HEADER)
+        out.write("\n")
+        with rec.stage("candidates.search"):
+            ii_all, jj_all = pca_candidate_arrays(cloud, radii, opts.dim)
     P = int(ii_all.shape[0])
-    times["candidates"] = time.monotonic() - t0
-    times["pairs"] = P
     if not P:
-        return times
-    t0 = time.monotonic()
-    a, b, s = device_planes(data, device)
-    ii_d = torch.from_numpy(ii_all.astype(np.int32)).to(device)
-    jj_d = torch.from_numpy(jj_all.astype(np.int32)).to(device)
-    if a.is_cuda:
-        torch.cuda.synchronize(a.device)
-    times["upload"] = time.monotonic() - t0
-    lib = _load_row_formatter()
-    samp_w = _sample_strings(data) if lib is not None else None
+        return rec.times(pairs=P)
+    with rec.stage("upload"):
+        a, b, s = device_planes(data, device)
+        ii_d = torch.from_numpy(ii_all.astype(np.int32)).to(device)
+        jj_d = torch.from_numpy(jj_all.astype(np.int32)).to(device)
+        if a.is_cuda:
+            torch.cuda.synchronize(a.device)
+    with rec.stage("samples"):
+        lib = _load_row_formatter()
+        samp_w = _sample_strings(data) if lib is not None else None
     for p0 in range(0, P, BLOCK_PAIRS):
         p1 = min(p0 + BLOCK_PAIRS, P)
         iu, ju = ii_all[p0:p1], jj_all[p0:p1]
-        t0 = time.monotonic()
-        plan = pair_kernel.plan_pair_blocks(iu, ju, data.n_samples) if a.is_cuda else None
-        tp = time.monotonic()
-        ints_d, sums_d = pair_kernel.pair_block_stats(
-            a, b, s, ii_d[p0:p1], jj_d[p0:p1], opts.min_cov, data.n_sites, plan=plan)
-        ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
-        t1 = time.monotonic()
-        f3, i9 = finalize(data, opts, iu, ju, ints, sums)
-        dist = pair_dist_sq(cloud, iu, ju, opts.dim)
-        t2 = time.monotonic()
-        _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w, dist=dist)
-        times["tiles"] += tp - t0
-        times["score"] += t1 - tp
-        times["finalize"] += t2 - t1
-        times["emit"] += time.monotonic() - t2
-    return times
+        with rec.stage("tiles"):
+            plan = pair_kernel.plan_pair_blocks(iu, ju, data.n_samples) if a.is_cuda else None
+        with rec.stage("score"):
+            with rec.stage("launch"):
+                ints_d, sums_d = pair_kernel.pair_block_stats(
+                    a, b, s, ii_d[p0:p1], jj_d[p0:p1], opts.min_cov, data.n_sites, plan=plan)
+            with rec.stage("fetch"):
+                ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+        with rec.stage("finalize"):
+            f3, i9 = finalize(data, opts, iu, ju, ints, sums)
+            dist = pair_dist_sq(cloud, iu, ju, opts.dim)
+        with rec.stage("emit"):
+            _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w, dist=dist)
+    return rec.times(pairs=P)

@@ -16,6 +16,7 @@ two host-side paths:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import io
 import queue
@@ -473,6 +474,10 @@ def BatchReader(
     return PyBatchReader(paths, k=k, seglen=seglen, batch=batch, dense=dense)
 
 
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
 def _bounded_put(q, stop, item) -> bool:
     """Put onto a bounded queue unless `stop` is set (the shared
     stoppable-producer primitive for the engine upload thread and both
@@ -509,6 +514,7 @@ class ParallelFileReader:
         threads: int = 2,
         depth: int = 4,
         dense: bool = False,
+        recorder=None,
     ):
         self.groups = [list(paths[i::threads]) for i in range(threads)]
         self.groups = [g for g in self.groups if g]
@@ -517,6 +523,7 @@ class ParallelFileReader:
         self.batch = batch
         self.depth = depth
         self.dense = dense
+        self.recorder = recorder  # a utils/spans.Recorder: each batch's parse, its stage
 
     def __iter__(self) -> Iterator[ReadBatch]:
         import queue
@@ -530,6 +537,8 @@ class ParallelFileReader:
         def _put(item) -> bool:
             return _bounded_put(q, stop, item)
 
+        stage = self.recorder.stage if self.recorder is not None else _no_stage
+
         def produce(group):
             try:
                 reader = BatchReader(
@@ -539,10 +548,15 @@ class ParallelFileReader:
                     batch=self.batch,
                     dense=self.dense,
                 )
-                for b in reader:
+                it = iter(reader)
+                while True:
+                    with stage("parse"):
+                        b = next(it, None)
+                    if b is None:
+                        break
                     if not _put(b):
                         return  # consumer went away; reader closes via its
-                        # own finally when the for-loop unwinds
+                        # own finally when the iterator is released
             except BaseException as e:
                 err.append(e)
             finally:

@@ -153,4 +153,5 @@ def merge_count_results(result, max_counts_thresh: float | None = None):
         total_bases=int(total[-3]),
         total_reads=int(total[-2]),
         early_term=early,
+        stages=result.stages,  # this rank's own
     )

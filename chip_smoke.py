@@ -61,10 +61,15 @@ result; any failure raises and ends the run with a non-zero exit:
      byte-identical, scores within 1e-9 max(1, |score|); the candidate-pair
      kernel launched and the all-vs-all one not
  11. the -p scorer at N = 3202 of the same design, in memory; its stage
-     times (the plans' among them) and its first rows against the exact
-     engine; then the candidate-pair kernel alone on its candidate list as
-     phase 9 runs it, the plain version on a sample that reaches every
-     thread of both instances
+     times (the plans' and the projection's split among them), the
+     projection's quantize launched once a 128-row block, the cloud from
+     the card's planes equal to the host's project_pcs bit for bit, and its
+     first rows against the exact engine; then the candidate-pair kernel alone
+     on its candidate list as phase 9 runs it, the plain version on a
+     sample that reaches every thread of both instances; then the
+     projection's quantize kernel alone at the path's shape (128 x 96,287)
+     against its plain version and the host's native sweep, bit for bit,
+     timed beside its byte bound and the plain version
  12. K2 (the window hash from unpacked codes, on the window stage) against
      its plain version at B = 32768, L = 256, k = 19, 31 and 32: random
      codes with 2% Ns and ragged lengths in [0, L]; bit-exact, with device
@@ -489,13 +494,14 @@ def reset_launches() -> None:
     """Every kernel's launch counter to 0, just before a path is driven."""
     from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
     from ntsm_tpu_torch.count import kernel as kernel_v1
-    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, project_kernel
     from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
     kernel_v3.launches_step = kernel_v1.launches_step = kernel_v2.launches_step = 0
     kernel_v2.launches_order = 0
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
+    project_kernel.launches_project = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
 
@@ -1163,7 +1169,8 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
 
     import torch
 
-    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, project_kernel
+    from ntsm_tpu_torch.eval.pca import PROJ_BLK
     from ntsm_tpu_torch.options import Options
 
     t0 = time.monotonic()
@@ -1201,9 +1208,12 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
     got = cli_eval(args)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse)
-    check(sum(launches) > 0, "eval -p did not launch pair_block_stats (the default engine was "
-          "not the card's)")
+    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse,
+                project_kernel.launches_project)
+    check(sum(launches[:2]) > 0, "eval -p did not launch pair_block_stats (the default engine "
+          "was not the card's)")
+    check(launches[2] == -(-N_EVAL_FILES // PROJ_BLK),
+          f"eval -p launched the projection's quantize {launches[2]} times")
     check(pair_kernel.launches == 0, "eval -p launched pair_stats")
     t0 = time.monotonic()
     want = cli_eval(["--engine", "exact", *args])
@@ -1217,23 +1227,26 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
     print(f"phase 10: ntsm eval -a -p on the card, {N_EVAL_FILES} files: {rows} candidate rows = "
           f"{rows / n_pairs:.4f} of {n_pairs} pairs, the same pairs and order as --engine exact "
           f"({exact_sec:.1f} s) with every non-score column byte-identical, {differ} score "
-          f"strings differ; pair_block_stats launches {launches} (tiles, sparse); {sec:.2f} s "
+          f"strings differ; pair_block_stats launches {launches[:2]} (tiles, sparse), the "
+          f"projection's quantize {launches[2]}; {sec:.2f} s "
           f"end to end (CLI "
           f"incl. load and projection), {rows / sec:.0f} candidate pairs/s [{card}]", flush=True)
     return launches
 
 
 def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple:
-    """Phase 11; returns the launches of K5's (tile, sparse) instances in
-    the scorer's run, then runs K5 alone on its candidate list and returns
-    check_pair_block_list's numbers."""
+    """Phase 11; returns the launches of K5's (tile, sparse) instances and
+    of the projection's quantize in the scorer's run, then runs K5 alone on
+    its candidate list and returns check_pair_block_list's numbers."""
     import torch
 
-    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, project_kernel
     from ntsm_tpu_torch.eval import exact
     from ntsm_tpu_torch.eval.driver import run_eval
     from ntsm_tpu_torch.eval.pca import (
         pair_dist_sq, pca_candidate_arrays, project_pcs, search_radii)
+    from ntsm_tpu_torch.eval.project_kernel import project_planes
+    from ntsm_tpu_torch.eval.rect import device_planes
     from ntsm_tpu_torch.options import Options
 
     t0 = time.monotonic()
@@ -1251,13 +1264,23 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple
         tm = run_eval(data, opts, sink, device=device)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse)
-    check(sum(launches) > 0 and pair_kernel.launches == 0,
-          f"N={n} -p: pair_block_stats launches {launches}, pair_stats {pair_kernel.launches}")
+    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse,
+                project_kernel.launches_project)
+    check(sum(launches[:2]) > 0 and pair_kernel.launches == 0,
+          f"N={n} -p: pair_block_stats launches {launches[:2]}, pair_stats {pair_kernel.launches}")
+    check(launches[2] == tm["project_blocks"] == -(-n // 128),
+          f"N={n} -p: the projection's quantize launched {launches[2]} times for "
+          f"{tm['project_blocks']} row blocks")
     P = tm["pairs"]
     check(sink.n_lines == P + 1, f"N={n} -p: {sink.n_lines} lines for {P} candidates")
-    # the first rows against the exact engine on the same candidates
+    # the run's projection (the planes on the card, quantized there) is the
+    # host's project_pcs bit for bit
     cloud = project_pcs(data, opts)
+    a_d, b_d, _ = device_planes(data, device)
+    check(np.array_equal(project_planes(a_d, b_d, data.n_sites, opts)[0], cloud),
+          f"N={n} -p: the cloud projected from the card's planes differs from project_pcs's")
+    del a_d, b_d
+    # the first rows against the exact engine on the same candidates
     ii, jj = pca_candidate_arrays(cloud, search_radii(data, opts), opts.dim)
     check(ii.size == P, f"N={n} -p: {ii.size} candidates on a second search, {P} in the run")
     k = bytes(sink.head).count(b"\n") - 1
@@ -1280,11 +1303,14 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple
     print(f"phase 11: the -p scorer at N={n} x {N_SITES} sites, dim {N_PCS}, in memory (make "
           f"and prepare {prep:.1f} s); radius tiers {tiers}; {P} candidates = "
           f"{P / n_pairs:.4f} of {n_pairs} pairs, {sink.n_bytes / 1e9:.3f} GB of rows in "
-          f"{sec:.2f} s = {P / sec:.0f} candidate pairs/s; project {tm['project']:.2f} s, "
+          f"{sec:.2f} s = {P / sec:.0f} candidate pairs/s; project {tm['project']:.3f} s "
+          f"(quantize {tm['project.quantize']:.4f}, copy {tm['project.copy']:.3f}, matmul "
+          f"{tm['project.matmul']:.3f}; {launches[2]} launches), "
           f"candidates {tm['candidates']:.2f} s, upload + s_single {tm['upload']:.2f} s, tiles "
           f"(the plans) {tm['tiles']:.3f} s, kernel + fetch {tm['score']:.3f} s, finalize "
           f"{tm['finalize']:.2f} s, emit {tm['emit']:.2f} s; pair_block_stats launches "
-          f"{launches} (tiles, sparse); first {k} rows match the exact engine ({differ} score "
+          f"{launches[:2]} (tiles, sparse); the cloud = project_pcs's bit for bit; first {k} "
+          f"rows match the exact engine ({differ} score "
           f"strings differ) [{card}]", flush=True)
     del sink, data, sub
     ab = torch.from_numpy(mx).to(device)
@@ -1293,6 +1319,56 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple
     alone = check_pair_block_list(device, a, b, ii.astype(np.int32), jj.astype(np.int32), card,
                                   f"phase 11, K5 alone on the N={n} list", full=False)
     return launches, alone
+
+
+def check_project_quantize(device, card: str) -> dict:
+    """Phase 11, the projection's quantize kernel alone at the path's shape:
+    one 128-row block of 96,287 sites of Poisson counts with 2% of the
+    samples' sites lost, against its plain version on the card and the
+    host's native sweep, bit for bit; device times beside the byte bound."""
+    import torch
+
+    from ntsm_tpu_torch.eval import pca, project_kernel
+
+    rng = np.random.default_rng(20261020)
+    m, mc = 128, 1
+    Lp = N_SITES + (-N_SITES) % 32
+    a = np.zeros((m, Lp), np.int32)
+    b = np.zeros_like(a)
+    a[:, :N_SITES] = rng.poisson(rng.uniform(0, 30, (m, 1)), (m, N_SITES))
+    b[:, :N_SITES] = rng.poisson(rng.uniform(0, 30, (m, 1)), (m, N_SITES))
+    lost = rng.random((m, N_SITES)) < 0.02
+    a[:, :N_SITES][lost] = 0
+    b[:, :N_SITES][lost] = 0
+    norm = rng.uniform(0, 1, N_SITES)
+    want = np.empty((m, N_SITES))
+    check(pca._quantize_vals_native(a[:, :N_SITES], b[:, :N_SITES], norm, mc, want),
+          "the host library's ntsm_quantize_vals is not there")
+    ad, bd = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    nd = torch.from_numpy(norm).to(device)
+    out = torch.empty((m, N_SITES), dtype=torch.float64, device=device)
+    got = project_kernel.quantize_rows(ad, bd, 0, m, N_SITES, nd, mc, out=out)
+    plain = project_kernel.quantize_rows_plain(ad, bd, 0, m, N_SITES, nd, mc)
+    bits = lambda x: x.cpu().numpy().view(np.int64)  # noqa: E731
+    err = 0.0 if np.array_equal(bits(got), bits(plain)) else 1.0
+    check(err == 0.0 and np.array_equal(bits(got), want.view(np.int64)),
+          "project_quantize: the values differ from the plain version's or the native sweep's")
+    ms = device_ms(lambda: project_kernel.quantize_rows(ad, bd, 0, m, N_SITES, nd, mc, out=out))
+    plain_ms = device_ms(
+        lambda: project_kernel.quantize_rows_plain(ad, bd, 0, m, N_SITES, nd, mc))
+    t0 = time.perf_counter()
+    pca._quantize_vals_native(a[:, :N_SITES], b[:, :N_SITES], norm, mc, want)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    # bytes: the two int32 planes' rows read and the f64 values written (the
+    # centers stay in L2); the division and the tests are far from the f64 peak
+    n_bytes = m * N_SITES * (4 + 4 + 8)
+    bd_ = bound(n_bytes, m * N_SITES * 8, F64_OPS_PER_S)
+    print(f"phase 11: project_quantize alone, a {m} x {N_SITES} block: bit-exact vs plain and "
+          f"the native sweep; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd_['bound_ms']:.4f} ms ({bd_['bound_by']}, {n_bytes / 1e6:.1f} MB); the host's "
+          f"native sweep {host_ms:.1f} ms [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, host_ms=host_ms,
+                **bd_)
 
 
 # ---------------------------------------------------------------- phases 12-13
@@ -2322,9 +2398,10 @@ def run_phases(card: str) -> list:
         rotation = spread_rotation()
         in_cli = eval_pca_path(device, work, rotation, card)
         in_scorer, alone = eval_pca_cohort(device, rotation, work, card)
+        project = check_project_quantize(device, card)
         # the -p path's launches: phase 10's CLI run and phase 11's scorer run
-        launches["pair_block_stats"], launches["pair_block_stats_sparse"] = (
-            x + y for x, y in zip(in_cli, in_scorer))
+        (launches["pair_block_stats"], launches["pair_block_stats_sparse"],
+         launches["project_quantize"]) = (x + y for x, y in zip(in_cli, in_scorer))
         for key, val in alone["tiles"].items():
             if key in ("ms", "list_ms", "plan_ms", "density", "tile_density", "tiles",
                        "sparse_pairs"):
@@ -2384,6 +2461,10 @@ def run_phases(card: str) -> list:
              source="ntsm_tpu_torch/csrc/pair_block_stats.cu",
              replaces="ntsm_tpu/eval/kernels.py:317",
              launches=launches["pair_block_stats_sparse"], **block["sparse"]),
+        dict(name="project_quantize", route="cuda",
+             source="ntsm_tpu_torch/csrc/project_quantize.cu",
+             replaces="none: the JAX package quantizes on the host",
+             launches=launches["project_quantize"], **project),
         dict(name="window_hash_codes", route="cuda",
              source="ntsm_tpu_torch/csrc/window_hash.cu",
              replaces="ntsm_tpu/count/pallas_kernel.py:148",
@@ -2410,7 +2491,8 @@ def run_phases(card: str) -> list:
     summary = ("summary: every phase passed: 2, 12 the count kernels bit-exact to their plain "
                "versions; 3, 4, 13 counts.txt byte-identical to golden and the fixtures; 5, 9 "
                "the pair kernels bit-exact; 6, 10 eval -a and -p = --engine exact; 7, 11 the "
-               "N = 3202 scorers; 8 the eval fixtures; 14-16 the experiment programs; 17a 13 "
+               "N = 3202 scorers, 11 the projection's quantize bit-exact to its plain version and the "
+               "native sweep; 8 the eval fixtures; 14-16 the experiment programs; 17a 13 "
                "nested tiers; 17b vcf -p = generate-pca-rot-mat's matrix and centers, the "
                "rotation orthonormal, the components the centred matrix times it; 17c eval -p "
                "on the panel = --engine exact with K5 launched and the copy pairs called the "

@@ -14,6 +14,7 @@ from __future__ import annotations
 import sys
 
 import numpy as np
+import torch
 
 from ntsm_tpu_torch.eval import exact
 from ntsm_tpu_torch.eval.exact import HEADER, PairResult, pair_score, results_row
@@ -34,9 +35,13 @@ from ntsm_tpu_torch.utils.formats import cpp_to_string
 
 
 # The -p projection's stages (utils/spans.py, area "eval"): project, and in
-# eval/pca.py:project_pcs's row-block loop the contiguous copies of a
-# block's count rows, their quantize and the product with the rotation;
-# the loads of the centers and the rotation are project's own time.
+# its row-block loop a block's quantize, project.copy and the product with
+# the rotation.  The device engine (eval/project_kernel.py:project_planes)
+# quantizes on the planes' device after their upload (stage upload):
+# quantize is the kernel's enqueue and copy the wait for the block's values
+# on the host; elsewhere (eval/pca.py:project_pcs) copy is the contiguous
+# copy of a block's count rows and quantize the host sweep.  The loads of
+# the centers and the rotation are project's own time.
 PROJECT_STAGES = ("project", "project.copy", "project.quantize", "project.matmul")
 
 
@@ -146,11 +151,32 @@ def scores_pairs(opts: Options, n_files: int) -> bool:
     return n_files > 1 and not opts.only_merge and not (opts.pca and opts.debug)
 
 
+def _pca_device(data: CountData, opts: Options, out, device, rec) -> dict:
+    """-p on the device engine: the count planes go to `device` first, the
+    projection quantizes from them there (eval/project_kernel.py) and the
+    scoring takes the same planes.  Returns compute_score_pca_cuda's stage
+    times with project_blocks, the projection's row blocks."""
+    from ntsm_tpu_torch.eval.project_kernel import project_planes
+    from ntsm_tpu_torch.eval.rect import compute_score_pca_cuda, device_planes
+
+    with rec.stage("upload"):
+        planes = device_planes(data, device)
+        if planes[0].is_cuda:
+            torch.cuda.synchronize(planes[0].device)
+    with rec.stage("project"):
+        cloud, blocks = project_planes(planes[0], planes[1], data.n_sites, opts)
+    times = compute_score_pca_cuda(data, opts, out, cloud, device, planes=planes)
+    times["project_blocks"] = blocks
+    return times
+
+
 def run_eval(data: CountData, opts: Options, out, device="cuda"):
     """Top-level dispatch (ntSeqMatchEval.cpp:304-341).  The device engine
     (opts.engine == "cuda") runs on `device`; its stage times are returned
     (eval/rect.py:compute_score_all_cuda, compute_score_pca_cuda, the
-    latter with the projection's, PROJECT_STAGES), else None.  Each stage
+    latter with the projection's, PROJECT_STAGES, and project_blocks: its
+    -p pass uploads the count planes first and projects from them on
+    `device`, eval/project_kernel.py), else None.  Each stage
     is a span ntsm.eval.<stage> while torch.profiler traces
     (utils/spans.py).  In
     a process group (parallel/distributed.py) the all-vs-all blocks are
@@ -182,16 +208,15 @@ def run_eval(data: CountData, opts: Options, out, device="cuda"):
             exact.compute_score_all(data, opts, out)
     else:
         with spans.recording("eval", PROJECT_STAGES) as rec:
-            with rec.stage("project"):
-                cloud = project_pcs(data, opts)
-            if opts.debug:
-                compute_score_pca_debug(data, opts, out, cloud)
-            elif opts.engine == "cuda":
-                from ntsm_tpu_torch.eval.rect import compute_score_pca_cuda
-
-                times = compute_score_pca_cuda(data, opts, out, cloud, device)
+            if opts.engine == "cuda" and not opts.debug:
+                times = _pca_device(data, opts, out, device, rec)
             else:
-                compute_score_pca(data, opts, out, cloud)
+                with rec.stage("project"):
+                    cloud = project_pcs(data, opts)
+                if opts.debug:
+                    compute_score_pca_debug(data, opts, out, cloud)
+                else:
+                    compute_score_pca(data, opts, out, cloud)
     if opts.merge and rank() == 0:  # under --distributed, rank 0 writes the merge
         merge_counts(data, opts.merge)
     return times

@@ -4,10 +4,12 @@
 Projection (projectPCs, src/CompareCounts.hpp:116-218): per sample the
 genotype fraction AT/(AT+CG) is quantized to {0, 0.5, 1} (thresholds 0.25 /
 0.75), missing sites stay 0, the per-site center is subtracted and the
-result is rotated into `dim` principal components.  It runs on the host, as
-in the JAX package: the native one-sweep quantize and an f64 BLAS product
-for the device engine (``--engine cuda``), the reference's long-double
-centers and per-step-rounded f64 accumulator for the exact engine.
+result is rotated into `dim` principal components.  project_pcs runs on
+the host, as in the JAX package: the native one-sweep quantize and an f64
+BLAS product (fast), the reference's long-double centers and per-step-
+rounded f64 accumulator for the exact engine.  The device engine's -p pass
+quantizes on the card instead, from the count planes it uploads, and keeps
+the same f64 BLAS product (eval/project_kernel.py): the same cloud.
 
 Candidate search (computeScorePCA, :285-528): the reference builds a
 nanoflann kd-tree and does per-sample radius queries with asymmetric
@@ -91,7 +93,7 @@ def load_rotation(path: str, n_sites: int) -> np.ndarray:
     return rot
 
 
-_PROJ_BLK = 128  # projection row block (buffers ~0.6 GB at the human scale)
+PROJ_BLK = 128  # projection row block (buffers ~0.6 GB at the human scale)
 
 
 class _ProjScratch:
@@ -226,6 +228,20 @@ def _project_exact_rows(vals64: np.ndarray, rotT: np.ndarray, out) -> None:
     out[:] = acc
 
 
+def projection_operands(opts: Options, fast: bool) -> tuple:
+    """(rotT [L, dim], centers [L]) of the projection: f64 for the fast
+    arithmetic; for the exact one long double, rotT C-contiguous for the
+    native per-step-rounded accumulator."""
+    norm = load_norm_values(opts.norm)
+    rot = load_rotation(opts.pca, norm.shape[0])
+    if opts.dim > rot.shape[0]:
+        raise AssertionError("opt::dim exceeds component count (:155)")
+    rotT = rot[: opts.dim].T  # [L, dim]
+    if fast:
+        return rotT.astype(np.float64), norm.astype(np.float64)
+    return np.ascontiguousarray(rotT), norm
+
+
 def project_pcs(data: CountData, opts: Options, fast: bool | None = None) -> np.ndarray:
     """[N, dim] float64 PCA cloud, matching projectPCs' arithmetic
     (:173-210): per site the genotype fraction AT/(AT+CG) is quantized to
@@ -245,24 +261,13 @@ def project_pcs(data: CountData, opts: Options, fast: bool | None = None) -> np.
     product are its stages project.copy, .quantize and .matmul."""
     if fast is None:
         fast = opts.engine == "cuda"
-    norm = load_norm_values(opts.norm)
-    rot = load_rotation(opts.pca, norm.shape[0])
-    if opts.dim > rot.shape[0]:
-        raise AssertionError("opt::dim exceeds component count (:155)")
+    rotT, normv = projection_operands(opts, fast)
     a, b = data.counts_ab()
     N, L = a.shape
     dim = opts.dim
     mc = opts.min_cov
-    rotT = rot[:dim].T  # [L, dim]
-    if fast:
-        rotT = rotT.astype(np.float64)
-        normv = norm.astype(np.float64)
-    else:
-        # contiguous for the native per-step-rounded accumulator
-        rotT = np.ascontiguousarray(rotT)
-        normv = norm
     cloud = np.empty((N, dim), np.float64)
-    blk = min(N, _PROJ_BLK)
+    blk = min(N, PROJ_BLK)
     sc = _ProjScratch(blk, L, fast)
     for r0 in range(0, N, blk):
         r1 = min(r0 + blk, N)

@@ -175,7 +175,7 @@ def _receive_block(src: int, i: int, n_pairs: int) -> tuple:
 
 
 def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarray,
-                           device) -> dict:
+                           device, planes: tuple | None = None) -> dict:
     """PCA-filtered comparison (computeScorePCA, CompareCounts.hpp:285-391)
     on the device engine: the candidate pairs and their order are the exact
     engine's (eval/driver.py:compute_score_pca), scored on `device` in
@@ -183,7 +183,10 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
     list (pair_kernel.plan_pair_blocks).  Returns the seconds spent in each
     stage (PCA_STAGES: candidates, upload, samples, tiles = the plans,
     score = launch and fetch, finalize, emit) and the number of candidate
-    pairs; inside run_eval's recorder, the projection's stages too."""
+    pairs; inside run_eval's recorder, the projection's stages too.
+    `planes`: device_planes(data, device), where the caller has uploaded
+    them already (run_eval, which projects from them); else they are
+    uploaded here."""
     rec = spans.recorder("eval", PCA_STAGES)
     with rec.stage("candidates"):
         with rec.stage("candidates.radii"):
@@ -196,7 +199,7 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
     if not P:
         return rec.times(pairs=P)
     with rec.stage("upload"):
-        a, b, s = device_planes(data, device)
+        a, b, s = device_planes(data, device) if planes is None else planes
         ii_d = torch.from_numpy(ii_all.astype(np.int32)).to(device)
         jj_d = torch.from_numpy(jj_all.astype(np.int32)).to(device)
         if a.is_cuda:

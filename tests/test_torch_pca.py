@@ -34,9 +34,10 @@ from ntsm_tpu.eval.kernels import _chunk_planes, _pair_block_stats_v2, _pair_gat
 from ntsm_tpu.eval.model import CountData as JCountData
 from ntsm_tpu.eval.wire import _device_planes
 from ntsm_tpu.options import Options as JOptions
-from ntsm_tpu_torch.eval import driver, pair_kernel, pca, rect
+from ntsm_tpu_torch.eval import driver, pair_kernel, pca, project_kernel, rect
 from ntsm_tpu_torch.eval.model import CountData
 from ntsm_tpu_torch.options import Options
+from tests.test_torch_cuda import native_quantize, quantize_edge_rows
 
 torch.set_num_threads(1)
 
@@ -65,10 +66,11 @@ def make_cohort(seed: int, N: int, L: int) -> np.ndarray:
     return mx.astype(np.int32)
 
 
-def cohorts(mx: np.ndarray, opts_kw: dict):
-    """The same cohort as a JAX CountData and a port CountData, prepared.
-    raw_total_kmers puts the clean samples' error rate near 0.001, below
-    the small tier's 0.01, and sample 4's at ~0.11."""
+def cohorts(mx: np.ndarray, opts_kw: dict, dtype=None):
+    """The same cohort as a JAX CountData and a port CountData, prepared,
+    the max counts in `dtype` (mx's where None).  raw_total_kmers puts the
+    clean samples' error rate near 0.001, below the small tier's 0.01, and
+    sample 4's at ~0.11."""
     N, L, _ = mx.shape
     distinct = np.full((L, 2), 13, dtype=np.int64)
     sums = (mx.astype(np.int64) * 13).sum(axis=(1, 2)).astype(np.float64)
@@ -78,7 +80,7 @@ def cohorts(mx: np.ndarray, opts_kw: dict):
         filenames=[f"s{i}_counts.txt" for i in range(N)],
         locus_ids=[f"rs{i}" for i in range(L)],
         distinct=distinct,
-        max_counts=mx,
+        max_counts=mx if dtype is None else mx.astype(dtype),
         sum_counts=mx * 13,
         raw_total_kmers=raw,
         ks=np.full(N, 19, dtype=np.int64),
@@ -130,6 +132,67 @@ def test_projection_python_paths_match_native(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "load", lambda: None)
     for fast in (True, False):
         np.testing.assert_array_equal(pca.project_pcs(pd, Options(**kw), fast=fast), want[fast])
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 257])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32], ids=["u8", "u16", "i32"])
+@pytest.mark.parametrize("seed,N,L,dim,mc", COHORTS)
+def test_device_projection_matches_host_and_jax(tmp_path, seed, N, L, dim, mc, dtype, n):
+    """The device engine's projection (eval/project_kernel.py) from the
+    planes of device_planes(data, "cpu"), where it runs the plain quantize,
+    gives project_pcs(fast=True)'s cloud and the JAX project_pcs(fast=True)'s
+    bit for bit, with n samples at the edges of its 128-row blocks and the
+    counts in each dtype of the count loaders."""
+    rot, norm = write_pca_files(tmp_path, seed, L)
+    kw = dict(min_cov=mc, dim=dim, pca=rot, norm=norm, genome_size=GENOME)
+    jd, pd = cohorts(np.ascontiguousarray(make_cohort(seed, max(n, 8), L)[:n]), kw, dtype)
+    a, b, _ = rect.device_planes(pd, "cpu")
+    before = project_kernel.launches_project
+    got, blocks = project_kernel.project_planes(a, b, pd.n_sites, Options(**kw))
+    assert blocks == -(-n // 128) and project_kernel.launches_project == before
+    assert got.shape == (n, dim) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, pca.project_pcs(pd, Options(**kw), fast=True))
+    np.testing.assert_array_equal(got, jpca.project_pcs(jd, JOptions(**kw), fast=True))
+
+
+@pytest.mark.parametrize("mc", [-1, 0, 1, 2])
+def test_plain_quantize_edges_match_native(mc):
+    """The plain quantize (the kernel's CPU version) equals the host's
+    native ntsm_quantize_vals bit for bit on the edge rows (missing sites,
+    g exactly 0.25 and 0.75, counts at mc and mc + 1, int32's max, an
+    all-missing row), whole and from an odd first row."""
+    a, b, norm = quantize_edge_rows(mc)
+    L = norm.size
+    want = native_quantize(a, b, L, norm, mc)
+    assert (want == 0.0).any() and (want[-1] == 0.0).all()
+    at, bt, nt = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(norm)
+    for r0, r1 in ((0, a.shape[0]), (3, 8), (5, 5)):
+        got = project_kernel.quantize_rows(at, bt, r0, r1, L, nt, mc).numpy()
+        np.testing.assert_array_equal(got.view(np.int64), want[r0:r1].view(np.int64))
+        out = torch.full((r1 - r0, L), np.nan, dtype=torch.float64)
+        assert project_kernel.quantize_rows(at, bt, r0, r1, L, nt, mc, out=out) is out
+        np.testing.assert_array_equal(out.numpy().view(np.int64), want[r0:r1].view(np.int64))
+
+
+def test_quantize_rows_rejects_bad_input():
+    a = torch.zeros((4, 32), dtype=torch.int32)
+    norm = torch.zeros(32, dtype=torch.float64)
+    f64 = lambda *shape: torch.zeros(shape, dtype=torch.float64)  # noqa: E731
+    cases = [
+        (dict(b=torch.zeros((4, 33), dtype=torch.int32)), ValueError),  # shapes differ
+        (dict(a=a.long(), b=a.long()), TypeError),  # not int32
+        (dict(norm=norm.float()), TypeError),  # centers not f64
+        (dict(r0=3, r1=5), ValueError),  # rows outside [0, N)
+        (dict(n_sites=33), ValueError),  # sites past the planes
+        (dict(norm=f64(20)), ValueError),  # fewer centers than sites
+        (dict(out=f64(4, 31)), ValueError),  # out of another shape
+        (dict(a=a.to("meta"), b=a.to("meta")), ValueError),  # the centers on another device
+    ]
+    for change, err in cases:
+        kw = dict(a=a, b=a, r0=0, r1=4, n_sites=30, norm=norm, mc=1, out=None) | change
+        with pytest.raises(err):
+            project_kernel.quantize_rows(**kw)
+    assert project_kernel.quantize_rows(a, a, 0, 4, 30, norm, 1).shape == (4, 30)
 
 
 @pytest.mark.parametrize("seed,N,L,dim,mc", COHORTS)
@@ -331,6 +394,10 @@ def test_run_eval_pca_dispatch(tmp_path, capsys):
         compare_rows(out.getvalue(), want.getvalue(), engine)
         if engine == "cuda":
             assert times["project"] >= 0 and times["pairs"] == out.getvalue().count("\n") - 1
+            # the projection from the uploaded planes: one row block, the
+            # plain quantize on the CPU (no launch), its stages timed
+            assert times["project_blocks"] == 1 and times["upload"] > 0
+            assert times["project.quantize"] > 0 and times["project.matmul"] > 0
         else:
             assert times is None
     assert "all-to-all" not in capsys.readouterr().err

@@ -24,6 +24,7 @@ import io as _io
 from ntsm_tpu_torch.count.golden import CountResult
 from ntsm_tpu_torch.io.sites import SiteTable
 from ntsm_tpu_torch.options import Options
+from ntsm_tpu_torch.utils import spans
 
 __all__ = [
     "load_sites",
@@ -134,7 +135,8 @@ def evaluate(
         engine = "cuda" if scores else "exact"
     _check(engine, EVAL_ENGINES, device, on_device=engine == "cuda" and scores)
     opts = opts.replace(engine=engine)
-    data = load_count_data(files, opts)
+    with spans.recording("eval"):
+        data = load_count_data(files, opts)
     buf = _io.StringIO()
     run_eval(data, opts, buf, device=device)
     return table_rows(buf.getvalue())
@@ -171,5 +173,6 @@ def merge_counts(count_files, out_path: str) -> None:
     from ntsm_tpu_torch.eval.model import load_count_data
 
     opts = Options(merge=out_path)
-    data = load_count_data(list(count_files), opts)
+    with spans.recording("eval"):
+        data = load_count_data(list(count_files), opts)
     _merge(data, out_path)

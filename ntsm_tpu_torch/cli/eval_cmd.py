@@ -218,6 +218,7 @@ def run(argv) -> int:
     t0 = time.monotonic()
     from ntsm_tpu_torch.cli.count_cmd import _rss_kb
     from ntsm_tpu_torch.eval.model import load_count_data
+    from ntsm_tpu_torch.utils import spans
 
     shield = contextlib.nullcontext()
     out = sys.stdout
@@ -241,7 +242,8 @@ def run(argv) -> int:
 
     if opts.verbose > 0:
         print("Reading count files", file=sys.stderr)
-    data = load_count_data(files, opts)
+    with spans.recording("eval"):  # the load's stages, spans while torch.profiler traces
+        data = load_count_data(files, opts)
     with shield:
         run_eval(data, opts, out, device=device)
     if distributed and dist.rank() != 0:

@@ -15,6 +15,7 @@ import numpy as np
 
 from ntsm_tpu_torch.io.countfile import load_count_arrays, load_count_files
 from ntsm_tpu_torch.options import Options
+from ntsm_tpu_torch.utils import spans
 
 # genotype classes (order matters for the relatedness logic)
 UNKNOWN, HET, HOM_AT, HOM_CG = 0, 1, 2, 3
@@ -98,38 +99,48 @@ class CountData:
         return self._cls
 
     def prepare(self, opts: Options) -> "CountData":
-        a, b = self.counts_ab()
-        mc = opts.min_cov
-        pa = a > mc
-        pb = b > mc
-        self._cls = None
-        self.hets = (pa & pb).sum(axis=1)
-        self.homs = (pa ^ pb).sum(axis=1)
-        self.miss = (~(pa | pb)).sum(axis=1)
+        """The per-sample columns (stage `prepare` of the current stage
+        recorder, utils/spans.py)."""
+        with spans.stage("prepare"):
+            a, b = self.counts_ab()
+            mc = opts.min_cov
+            pa = a > mc
+            pb = b > mc
+            self._cls = None
+            self.hets = (pa & pb).sum(axis=1)
+            self.homs = (pa ^ pb).sum(axis=1)
+            self.miss = (~(pa | pb)).sum(axis=1)
 
-        self._min_cov = opts.min_cov
-        self._s_single = None
+            self._min_cov = opts.min_cov
+            self._s_single = None
 
-        # error rate (computeErrorRate, CompareCounts.hpp:1198-1217)
-        n = self.n_samples
-        err = np.full(n, -1.0)
-        distinct_kmers = float(self.distinct.sum())
-        sums = self.sum_counts.sum(axis=(1, 2)).astype(np.float64)
-        for i in range(n):
-            if self.raw_total_kmers[i] > 0 and self.ks[i] > 0:
-                expected = (
-                    float(self.raw_total_kmers[i]) * distinct_kmers / float(opts.genome_size)
-                )
-                err[i] = 1.0 - (sums[i] / expected) ** (1.0 / float(self.ks[i]))
-        self.error_rate = err
-        self.cov = self.total_counts.astype(np.float64) / float(self.n_sites)
+            # error rate (computeErrorRate, CompareCounts.hpp:1198-1217)
+            n = self.n_samples
+            err = np.full(n, -1.0)
+            distinct_kmers = float(self.distinct.sum())
+            sums = self.sum_counts.sum(axis=(1, 2)).astype(np.float64)
+            for i in range(n):
+                if self.raw_total_kmers[i] > 0 and self.ks[i] > 0:
+                    expected = (
+                        float(self.raw_total_kmers[i]) * distinct_kmers / float(opts.genome_size)
+                    )
+                    err[i] = 1.0 - (sums[i] / expected) ** (1.0 / float(self.ks[i]))
+            self.error_rate = err
+            self.cov = self.total_counts.astype(np.float64) / float(self.n_sites)
         return self
 
 
 def load_count_data(paths, opts: Options) -> CountData:
     """Load and prepare a cohort: the native bulk loader into int32 planes,
     else the exact int64 per-file path (reordered loci, int32 overflow, no
-    native library)."""
+    native library).  The load is the stage `load` of the current stage
+    recorder (utils/spans.py), the prepare its sibling `prepare`."""
+    with spans.stage("load"):
+        data = _load(paths)
+    return data.prepare(opts)
+
+
+def _load(paths) -> CountData:
     bulk = load_count_arrays(paths)
     if bulk is not None:
         locus_ids, distinct, mc, sc, tks, kss = bulk
@@ -142,7 +153,7 @@ def load_count_data(paths, opts: Options) -> CountData:
             raw_total_kmers=tks,
             ks=kss,
             total_counts=mc.sum(axis=(1, 2)),
-        ).prepare(opts)
+        )
 
     locus_ids, distinct, files = load_count_files(paths)
     return CountData(
@@ -154,4 +165,4 @@ def load_count_data(paths, opts: Options) -> CountData:
         raw_total_kmers=np.array([f.raw_total_kmers for f in files], dtype=np.int64),
         ks=np.array([f.k for f in files], dtype=np.int64),
         total_counts=np.array([f.total_counts for f in files], dtype=np.int64),
-    ).prepare(opts)
+    )

@@ -10,16 +10,29 @@ Reader replicates the CompareCounts constructor (src/CompareCounts.hpp:30-114):
 the first file fixes the locus order and the distinct columns; every file's
 rows are matched by locusID; a file's coverage total is the sum of its
 max-count columns.  The native parsers (ntsm_tpu_torch.native) read the
-numeric columns; the Python parse is the fallback.  The JAX package's
-wire loader (u8/u16 upload planes) is a TPU upload format and is not
-ported: the eval engine here uploads the int32 planes.
+numeric columns; the Python parse is the fallback.  Each file's read and
+parse are the stages ``load.read`` and ``load.parse`` of the current stage
+recorder (utils/spans.py), and :data:`counters` counts the loaders' work.
+The JAX package's wire loader (u8/u16 upload planes) is a TPU upload
+format and is not ported: the eval engine here uploads the int32 planes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import io
 from dataclasses import dataclass
 
 import numpy as np
+
+from ntsm_tpu_torch.utils import spans
+
+# The loaders' work in this process (read by tests and the benchmark, like
+# the kernels' launch counters): files read and parsed, their bytes, and
+# the files that left the native fast path for the id-mapped parse or the
+# int64 path (load_count_files, every file it loads).  A file read twice
+# counts twice.
+counters = {"files": 0, "bytes": 0, "exact_files": 0}
 
 
 def format_counts(
@@ -66,6 +79,16 @@ class CountFile:
 _scratch: dict = {}
 
 
+def _read(path: str) -> bytes:
+    """A count file's bytes (stage load.read), counted."""
+    with spans.stage("load.read"):
+        with open(path, "rb") as fh:
+            buf = fh.read()
+    counters["files"] += 1
+    counters["bytes"] += len(buf)
+    return buf
+
+
 def _parse_native(path: str):
     """Native counts.txt parse: (tk, ks, ids_blob, ints[n,6]) or None.
 
@@ -76,35 +99,33 @@ def _parse_native(path: str):
     lib = native.load()
     if lib is None:
         return None
-    import ctypes
-
-    with open(path, "rb") as fh:
-        buf = fh.read()
-    cap = buf.count(b"\n") + 2
-    ints = _scratch.get("ints")
-    if ints is None or ints.shape[0] < cap:
-        ints = _scratch["ints"] = np.empty((cap, 6), dtype=np.int64)
-    idcap = len(buf) + cap + 16
-    ids = _scratch.get("ids")
-    if ids is None or ids.shape[0] < idcap:
-        ids = _scratch["ids"] = np.empty(idcap, dtype=np.uint8)
-    ids_len = ctypes.c_long(0)
-    tk = ctypes.c_long(0)
-    ks = ctypes.c_long(0)
-    n = lib.ntsm_parse_counts(
-        buf,
-        ctypes.c_long(len(buf)),
-        ints.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_long(ints.shape[0]),
-        ids.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_long(ids.shape[0]),
-        ctypes.byref(ids_len),
-        ctypes.byref(tk),
-        ctypes.byref(ks),
-    )
-    if n < 0:
-        return None
-    blob = ids[: ids_len.value].tobytes()
+    buf = _read(path)
+    with spans.stage("load.parse"):
+        cap = buf.count(b"\n") + 2
+        ints = _scratch.get("ints")
+        if ints is None or ints.shape[0] < cap:
+            ints = _scratch["ints"] = np.empty((cap, 6), dtype=np.int64)
+        idcap = len(buf) + cap + 16
+        ids = _scratch.get("ids")
+        if ids is None or ids.shape[0] < idcap:
+            ids = _scratch["ids"] = np.empty(idcap, dtype=np.uint8)
+        ids_len = ctypes.c_long(0)
+        tk = ctypes.c_long(0)
+        ks = ctypes.c_long(0)
+        n = lib.ntsm_parse_counts(
+            buf,
+            ctypes.c_long(len(buf)),
+            ints.ctypes.data_as(ctypes.c_void_p),
+            ctypes.c_long(ints.shape[0]),
+            ids.ctypes.data_as(ctypes.c_void_p),
+            ctypes.c_long(ids.shape[0]),
+            ctypes.byref(ids_len),
+            ctypes.byref(tk),
+            ctypes.byref(ks),
+        )
+        if n < 0:
+            return None
+        blob = ids[: ids_len.value].tobytes()
     return tk.value, ks.value, blob, ints[:n]
 
 
@@ -121,13 +142,11 @@ def load_count_arrays(paths):
     lib = native.load()
     if lib is None:
         return None  # caller falls back to load_count_files
-    import ctypes
 
-    def parse_into(path, mc_row, sc_row):
-        """Native parse straight into the final [n, 2] i32 slices.
-        Returns (rows, ids_blob, tk, ks) or None (malformed / overflow)."""
-        with open(path, "rb") as fh:
-            buf = fh.read()
+    def parse_into(buf, mc_row, sc_row):
+        """Native parse of a file's bytes straight into the final [n, 2]
+        i32 slices: (rows, ids_blob, tk, ks); rows < 0 for a malformed
+        file or an overflow."""
         cap = mc_row.shape[0]
         idcap = len(buf) + 16
         ids = _scratch.get("ids")
@@ -149,8 +168,6 @@ def load_count_arrays(paths):
             ctypes.byref(tk),
             ctypes.byref(ks),
         )
-        if rows < 0:
-            return None
         return rows, ids[: ids_len.value].tobytes(), tk.value, ks.value
 
     # first file fixes locus order, row count and the distinct columns
@@ -176,40 +193,50 @@ def load_count_arrays(paths):
     sc[0] = ints0[:, 2:4]
     index_of = None
     for s in range(1, N):
-        got = parse_into(paths[s], mc[s], sc[s])
-        if got is not None and got[0] == n and got[1] == blob0:
+        buf = _read(paths[s])
+        with spans.stage("load.parse"):
+            got = parse_into(buf, mc[s], sc[s])
+        if got[0] == n and got[1] == blob0:
             _, _, tks[s], kss[s] = got
         else:
             # locus order differs / malformed / i32 overflow: exact
             # id-mapped parse for this file
+            counters["exact_files"] += 1
             if index_of is None:
                 index_of = {lid: i for i, lid in enumerate(locus_ids)}
-            tk, ks, rows = _parse_rows(paths[s])
-            mc[s] = 0
-            sc[s] = 0
-            try:
-                for r in rows:
-                    i = index_of[r[0]]
-                    mc[s, i, 0] = int(r[1])
-                    mc[s, i, 1] = int(r[2])
-                    sc[s, i, 0] = int(r[3])
-                    sc[s, i, 1] = int(r[4])
-            except OverflowError:
-                # count > 2^31-1 in a locus-reordered file: the int32 fast
-                # planes can't hold it; signal the caller to use the exact
-                # int64 load_count_files path instead
-                return None
+            tk, ks, rows = _parse_rows(paths[s], buf)
+            with spans.stage("load.parse"):
+                mc[s] = 0
+                sc[s] = 0
+                try:
+                    for r in rows:
+                        i = index_of[r[0]]
+                        mc[s, i, 0] = int(r[1])
+                        mc[s, i, 1] = int(r[2])
+                        sc[s, i, 0] = int(r[3])
+                        sc[s, i, 1] = int(r[4])
+                except OverflowError:
+                    # count > 2^31-1 in a locus-reordered file: the int32 fast
+                    # planes can't hold it; signal the caller to use the exact
+                    # int64 load_count_files path instead
+                    return None
             tks[s] = tk
             kss[s] = ks
+        del buf  # freed before the next file's read reuses its pages
     return locus_ids, distinct, mc, sc, tks, kss
 
 
-def _parse_rows(path: str):
+def _parse_rows(path: str, buf: bytes | None = None):
+    """(#@TK, #@KS, rows of 7 fields) of a count file, parsed line by line
+    as text (the exact parse); `buf` is the file's bytes where they are
+    read already."""
+    if buf is None:
+        buf = _read(path)
     tk = 0
     ks = 0
     rows = []
-    with open(path, "r") as fh:
-        for lineno, line in enumerate(fh, 1):
+    with spans.stage("load.parse"):
+        for lineno, line in enumerate(io.TextIOWrapper(io.BytesIO(buf)), 1):
             line = line.rstrip("\n")
             if not line:
                 continue
@@ -239,7 +266,9 @@ def load_count_files(paths) -> tuple[list, np.ndarray, list[CountFile]]:
     file's (the overwhelmingly common case — same site set, same order)
     the arrays are used directly, otherwise rows are re-mapped by id
     exactly like the reference's .at() lookups (CompareCounts.hpp:87-99).
+    Every file it loads counts in counters["exact_files"].
     """
+    counters["exact_files"] += len(paths)
     nat0 = _parse_native(paths[0])
     index_of = None
     if nat0 is not None:

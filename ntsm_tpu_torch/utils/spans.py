@@ -18,8 +18,9 @@ it.  A stage ``name`` of a recorder of area ``area``:
   the trace's own clock (an event's ``ts`` plus the file's
   ``baseTimeNanoseconds`` / 1e3 is ``time_ns()`` / 1e3).
 
-Code that cannot be handed a recorder (``eval/pca.py:project_pcs``) reaches
-the current one of its context through :func:`stage`; :func:`recording`
+Code that cannot be handed a recorder (``eval/pca.py:project_pcs``, the
+count-file load in ``eval/model.py`` and ``io/countfile.py``) reaches the
+current one of its context through :func:`stage`; :func:`recording`
 makes a recorder current, and :func:`recorder` joins the current one.
 """
 

@@ -44,7 +44,9 @@ result; any failure raises and ends the run with a non-zero exit:
      launch counter above 0; pairs/s end to end
   7. the -a scorer at the N = 3202 cohort (1000 Genomes size), in memory,
      through ``run_eval`` into a byte-counting sink; its first rows against
-     the exact engine
+     the exact engine; then the default scorer (rows under -s only) on the
+     same cohort: the score selection launched once a row block, the pairs
+     kept, and every printed row against the exact engine
   8. byte parity with the eval fixtures on the card, -p, its single-sample
      PC columns and -b included
   9. the candidate-pair kernel (-p) against its plain version on the
@@ -166,6 +168,13 @@ result; any failure raises and ends the run with a non-zero exit:
      one-process table, with the default row blocks and with blocks of
      4,096 pairs (dealt to both ranks, gathered on rank 0); rank 1 prints
      nothing; wall times beside the one-process ones
+ 22. the default eval's score selection (``csrc/score_select.cu``) alone
+     on the first row block of the N = 3202 cohort (2,095,310 pairs) of
+     synthetic statistics, with -s 0.5 keeping a few dozen pairs and with
+     -s inf keeping all: the kept set equal to its plain version's on the
+     card, each record the block's values, the count every pair where all
+     survive; device times beside the byte bound (36 B a pair read, 40 B a
+     kept pair written) and the plain version's
   then, passed or failed, every process the run started that is still
      there is stopped and reaped (the resource tracker of the spawn pools
      of phases 6 and 10, and anything a child left behind: this process is
@@ -501,6 +510,7 @@ def reset_launches() -> None:
     kernel_v3.launches_step = kernel_v1.launches_step = kernel_v2.launches_step = 0
     kernel_v2.launches_order = 0
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
+    pair_kernel.launches_select = 0
     project_kernel.launches_project = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
@@ -906,10 +916,11 @@ class ByteSink:
         pass
 
 
-def eval_cohort(device, mx: np.ndarray, card: str) -> None:
+def eval_cohort(device, mx: np.ndarray, card: str) -> int:
+    """Phase 7; returns the score selection's launches in its default run."""
     import torch
 
-    from ntsm_tpu_torch.eval import exact
+    from ntsm_tpu_torch.eval import exact, pair_kernel
     from ntsm_tpu_torch.eval.driver import run_eval
     from ntsm_tpu_torch.options import Options
 
@@ -943,6 +954,39 @@ def eval_cohort(device, mx: np.ndarray, card: str) -> None:
           f"kernel + fetch {tm['score']:.2f} s in {tm['blocks']} blocks, finalize "
           f"{tm['finalize']:.2f} s, emit {tm['emit']:.2f} s; first {k - 1} rows match the "
           f"exact engine ({differ} score strings differ) [{card}]", flush=True)
+
+    # the default mode: only the rows under -s print, selected on the card
+    opts = Options(engine="cuda")
+    sink = ByteSink()
+    before = pair_kernel.launches_select
+    t0 = time.monotonic()
+    with contextlib.redirect_stderr(io.StringIO()):
+        tm = run_eval(data, opts, sink, device=device)
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = pair_kernel.launches_select - before
+    check(launches == tm["blocks"], f"N={n} default: the score selection launched {launches} "
+          f"times for {tm['blocks']} blocks")
+    rows = bytes(sink.head).decode().splitlines()
+    check(sink.n_lines == len(rows) and 2 <= len(rows) <= tm["kept"] + 1,
+          f"N={n} default: {sink.n_lines} lines, {tm['kept']} pairs kept")
+    names = {f: i for i, f in enumerate(data.filenames)}
+    ii = np.array([names[r.split("\t")[0]] for r in rows[1:]], dtype=np.int64)
+    jj = np.array([names[r.split("\t")[1]] for r in rows[1:]], dtype=np.int64)
+    check(ii[0] == 0 and jj[0] == 1, f"N={n} default: the swap (0, 1) is not the first row")
+    score, tallies = exact.native_pair_stats(data, opts, ii, jj)
+    want = io.StringIO()
+    want.write(exact.HEADER + "\n")
+    exact._emit_pairs(data, opts, want, ii, jj, score, tallies)
+    differ = compare_tables("\n".join(rows) + "\n", want.getvalue(), f"N={n} default rows")
+    print(f"phase 7: the default scorer at N={n}: {len(rows) - 1} rows under -s "
+          f"{opts.score_thresh} of {tm['kept']} pairs kept on the card, in {sec:.2f} s = "
+          f"{n_pairs / sec:.0f} pairs/s; upload {tm['upload']:.2f} s, kernels + fetch "
+          f"{tm['score']:.2f} s (fetch {tm['fetch']:.3f}) in {tm['blocks']} blocks, finalize "
+          f"{tm['finalize']:.4f} s, emit {tm['emit']:.4f} s; the score selection launched "
+          f"{launches} times; the rows match the exact engine ({differ} score strings differ) "
+          f"[{card}]", flush=True)
+    return launches
 
 
 def eval_fixtures() -> None:
@@ -1369,6 +1413,67 @@ def check_project_quantize(device, card: str) -> dict:
           f"native sweep {host_ms:.1f} ms [{card}]", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, host_ms=host_ms,
                 **bd_)
+
+
+def check_score_select(device, card: str) -> dict:
+    """Phase 22, the default eval's score selection alone on the first row
+    block of the N = 3202 cohort: synthetic statistics whose scores lie at
+    1-3 but for a few dozen pairs under 0.5, and 50 pairs of n == 0;
+    -s 0.5 and -s inf (every pair kept).  The kept set and each record
+    against the plain version on the card; device times beside the byte
+    bound."""
+    import torch
+
+    from ntsm_tpu_torch.eval import pair_kernel, rect
+
+    rng = np.random.default_rng(20261018)
+    N = N_COHORT
+    r0, r1 = next(rect.row_blocks(N, rect.BLOCK_PAIRS))
+    P = pair_kernel.n_block_pairs(N, r0, r1)
+    ints = rng.integers(20_000, 90_000, size=(5, P)).astype(np.int32)
+    ints[0, rng.integers(0, P, 50)] = 0
+    cov = rng.uniform(25, 35, N)
+    target = rng.uniform(1, 3, P)
+    target[rng.integers(0, P, 40)] = rng.uniform(-0.2, 0.5, 40)
+    iu, ju = rect.block_indices(N, r0, r1)
+    ss = rng.uniform(-3e5, -1e5, P)
+    joint = ss - 0.5 * target * ints[0] * (cov[iu] * cov[ju]) ** 0.2
+    idev = torch.from_numpy(ints).to(device)
+    sdev = torch.from_numpy(np.stack([joint, ss])).to(device)
+    cdev = torch.from_numpy(cov).to(device)
+    out = {}
+    for name, thresh in (("s05", 0.5), ("all", float("inf"))):
+        hi = pair_kernel.select_threshold(thresh)
+        ki, kf, cnt = pair_kernel.score_select(idev, sdev, cdev, r0, N, 0.2, hi)
+        pi, pf, pc = pair_kernel.score_select_plain(idev, sdev, cdev, r0, N, 0.2, hi)
+        k = int(cnt[0])
+        rec_i, rec_f = ki[:k].cpu().numpy(), kf[:k].cpu().numpy()
+        order = np.argsort(rec_i[:, 0])
+        p = rec_i[order, 0]
+        check(k == int(pc[0]) and np.array_equal(p, pi[:, 0].cpu().numpy()),
+              f"score_select -s {thresh}: {k} kept, the plain version {int(pc[0])}")
+        check(np.array_equal(rec_i[order, 1:].T, ints[:, p])
+              and np.array_equal(rec_f[order].T, np.stack([joint, ss])[:, p]),
+              f"score_select -s {thresh}: a record is not the block's values")
+        check(k == P if thresh == float("inf") else 20 <= k < 200,
+              f"score_select -s {thresh}: {k} of {P} pairs kept")
+        ms = device_ms(lambda: pair_kernel.score_select(idev, sdev, cdev, r0, N, 0.2, hi))
+        plain_ms = event_ms(lambda: pair_kernel.score_select_plain(idev, sdev, cdev, r0, N, 0.2,
+                                                                   hi))
+        # bytes: each pair's ints and sums read once, each kept record (24 +
+        # 16 B) written once, cov read once; a pair's pow, two divisions and
+        # square root are far from the f64 peak (~60 operations a pair)
+        n_bytes = P * 36 + k * 40 + N * 8
+        bd_ = bound(n_bytes, P * 60, F64_OPS_PER_S)
+        print(f"phase 22: score_select alone, -s {thresh}, the first row block of N={N} "
+              f"({P} pairs): {k} kept, equal to the plain version; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bd_['bound_ms']:.4f} ms ({bd_['bound_by']}, "
+              f"{n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
+        out[name] = dict(kept=k, ms=ms, plain_ms=plain_ms, **bd_)
+    return dict(max_abs_err=0.0, pairs=P, ms=out["s05"]["ms"], plain_ms=out["s05"]["plain_ms"],
+                library_ms=None, bound_ms=out["s05"]["bound_ms"],
+                bound_by=out["s05"]["bound_by"], kept=out["s05"]["kept"],
+                all_ms=out["all"]["ms"], all_bound_ms=out["all"]["bound_ms"])
 
 
 # ---------------------------------------------------------------- phases 12-13
@@ -2351,7 +2456,7 @@ def main() -> int:
 
 
 def run_phases(card: str) -> list:
-    """Phases 1-21; returns the kernels line's rows and the summary of the
+    """Phases 1-22; returns the kernels line's rows and the summary of the
     checks that passed."""
     import torch
 
@@ -2392,7 +2497,7 @@ def run_phases(card: str) -> list:
         block = check_pair_block_stats(device, cohort, card)
         launches["pair_stats"], count_files, eval_table, eval_sec = eval_main_path(cohort, work,
                                                                                   card)
-        eval_cohort(device, cohort, card)
+        launches["score_select"] = eval_cohort(device, cohort, card)
         del cohort
         eval_fixtures()
         rotation = spread_rotation()
@@ -2433,6 +2538,7 @@ def run_phases(card: str) -> list:
         distributed_path(sites, fq, golden_text, count_files, eval_table, eval_sec, count_sec,
                          work, card)
         print(f"phases 19-21: {time.monotonic() - t0:.1f} s in all", flush=True)
+        select = check_score_select(device, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2465,6 +2571,10 @@ def run_phases(card: str) -> list:
              source="ntsm_tpu_torch/csrc/project_quantize.cu",
              replaces="none: the JAX package quantizes on the host",
              launches=launches["project_quantize"], **project),
+        dict(name="score_select", route="cuda",
+             source="ntsm_tpu_torch/csrc/score_select.cu",
+             replaces="none: the JAX engine applies -s on the host",
+             launches=launches["score_select"], **select),
         dict(name="window_hash_codes", route="cuda",
              source="ntsm_tpu_torch/csrc/window_hash.cu",
              replaces="ntsm_tpu/count/pallas_kernel.py:148",
@@ -2501,7 +2611,8 @@ def run_phases(card: str) -> list:
                "golden and its step (lookup and ordering stage, the only kernels it runs) bit-exact "
                "to its plain version; 20 count --trace = golden, "
                "with the stage spans and the fused step's kernel events; 21 count and eval -a "
-               "--distributed on 2 ranks = one process")
+               "--distributed on 2 ranks = one process; 7, 22 the default eval's score selection "
+               "keeps the plain version's pairs, the rows = the exact engine's")
     return kernels, summary
 
 

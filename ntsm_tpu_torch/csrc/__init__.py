@@ -10,10 +10,10 @@ and returns ``cudaGetLastError()``; the wrappers (``ntsm_tpu_torch.count.hash_ke
 ``count.kernel_v2``, whose v2 count step (a lookup and an ordering
 stage) the v2 engine calls,
 ``count.kernel_v3``, whose fused count step the v3 engine calls,
-``eval.pair_kernel``, ``eval.project_kernel`` (the ``-p`` projection's
-quantize), ``experiments.gather``, ``experiments.exp_dma_probe``
-and ``experiments.exp_count_kernels``) raise on
-a non-zero code.
+``eval.pair_kernel`` (the pair kernels and the default eval's score
+selection), ``eval.project_kernel`` (the ``-p`` projection's quantize),
+``experiments.gather``, ``experiments.exp_dma_probe`` and
+``experiments.exp_count_kernels``) raise on a non-zero code.
 Nothing is compiled when this module is imported, so the CPU tests import
 it freely.
 """
@@ -141,6 +141,9 @@ def load():
         lib.ntsm_pair_block_tiles.argtypes = [P, P, P, L, L, L, P, P, P, L, P, P, L, P]
         lib.ntsm_pair_block_sparse.restype = I
         lib.ntsm_pair_block_sparse.argtypes = [P, P, P, L, L, L, P, I, P, P, P, L, P, P, L, P]
+        lib.ntsm_score_select.restype = I
+        lib.ntsm_score_select.argtypes = [P, P, L, P, L, L, ctypes.c_double, ctypes.c_double,
+                                          P, P, P, P]
         lib.ntsm_project_quantize.restype = I
         lib.ntsm_project_quantize.argtypes = [P, P, L, L, L, P, ctypes.c_double, P, P]
         lib.ntsm_gather_1d.restype = I

@@ -30,21 +30,31 @@ the host (:func:`plan_pair_blocks`) and launches the instances of
 ``csrc/pair_block_stats.cu`` the plan uses, or raises.
 ``launches_block`` counts the tile instance's launches,
 ``launches_block_sparse`` the sparse instance's.
+
+:func:`score_select` keeps, of a block's :func:`pair_stats` results, the
+pairs whose score can fall under ``-s``, as compacted records on the
+results' device (the default all-vs-all without ``-a``, eval/rect.py): for
+CPU tensors it runs :func:`score_select_plain`, for CUDA tensors it
+launches ``csrc/score_select.cu`` or raises.  ``launches_select`` counts
+its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ntsm_tpu_torch import csrc
+from ntsm_tpu_torch.eval.exact import DBL_MAX
 
 launches = 0
 launches_block = 0
 launches_block_sparse = 0
+launches_select = 0
 
 N_INTS = 5  # n, ibs0, shared_hets, hets1, hets2
 # csrc/pair_stats.cu: a block of TILE x TILE threads, each holding RI x RJ
@@ -63,6 +73,10 @@ SPARSE_PAIRS = 128
 # which the two cost the same on the H100, 208 ns a tile slot against 748
 # ns a sparse pair at 96,287 sites (experiments/exp_pair_block_stats.py)
 DENSITY_MIN = 0.28
+# score_select drops a pair only when its score is at least -s plus this
+# share of max(1, |-s|): the card's pow is within 2 ulp of glibc's, so a pair
+# that the host's score puts under -s is always kept (select_threshold)
+SELECT_MARGIN = 1e-12
 # elements of a [T, N, C] broadcast chunk in the plain version: bounds its
 # temporaries (a few f64 planes of this size) on either device
 PLAIN_CHUNK = {"cpu": 1 << 22, "cuda": 1 << 25}
@@ -228,6 +242,84 @@ def pair_stats(a, b, s, r0: int, r1: int, mc: int, n_sites: int):
     csrc.check(lib, rc, "pair_stats")
     launches += 1
     return ints, sums
+
+
+def select_threshold(thresh: float) -> float:
+    """thr_hi of :func:`score_select` for the score threshold `thresh`:
+    SELECT_MARGIN above it, or `thresh` itself where it is not finite (a
+    NaN keeps every pair)."""
+    thresh = float(thresh)
+    if not math.isfinite(thresh):
+        return thresh
+    return thresh + SELECT_MARGIN * max(1.0, abs(thresh))
+
+
+def score_select_plain(ints, sums, cov, r0: int, n_samples: int, skew: float, thr_hi: float):
+    """The plain PyTorch version of :func:`score_select`, in f64: the
+    score of each pair p of the block (row i, column j of the triangle),
+    n > 0 ? -2(joint - ss) / (cov_i cov_j)^skew / n : DBL_MAX, and the
+    pairs with !(score >= thr_hi), in ascending p: (keep_i [k, 6] int32,
+    keep_f [k, 2] f64, count [1] int32 = k)."""
+    dev = ints.device
+    P = ints.shape[1]
+    rows = torch.arange(r0, n_samples - 1, device=dev, dtype=torch.int64)
+    starts = rows * (2 * n_samples - rows - 1) // 2  # pairs of the rows before each row
+    g = starts[0] + torch.arange(P, device=dev, dtype=torch.int64)
+    i = rows[torch.searchsorted(starts, g, right=True) - 1]
+    j = i + 1 + (g - i * (2 * n_samples - i - 1) // 2)
+    n = ints[0]
+    loglik = -2.0 * (sums[0] - sums[1])
+    sc = loglik / (cov[i] * cov[j]).pow(skew) / n.double()
+    score = torch.where(n > 0, sc, torch.full_like(sc, DBL_MAX))
+    kept = torch.nonzero(~(score >= thr_hi)).squeeze(1)
+    keep_i = torch.cat([kept.to(torch.int32)[:, None], ints[:, kept].t()], dim=1).contiguous()
+    keep_f = sums[:, kept].t().contiguous()
+    return keep_i, keep_f, torch.tensor([kept.numel()], dtype=torch.int32, device=dev)
+
+
+def score_select(ints, sums, cov, r0: int, n_samples: int, skew: float, thr_hi: float):
+    """(keep_i [cap, 6] int32, keep_f [cap, 2] f64, count [1] int32) on the
+    results' device: of the (ints [5, P], sums [2, P]) that
+    :func:`pair_stats` gave for the rows from r0 of an n_samples cohort,
+    the records (p, n, ibs0, shared_hets, hets1, hets2) and (joint, ss) of
+    the first count[0] pairs kept; cov: the [n_samples] f64 coverages.  A
+    pair is kept unless its score is at least thr_hi
+    (:func:`select_threshold` of -s), so the kept set holds every pair
+    whose host score is under -s.  On the card the records are in no
+    order and cap is P; on the CPU they are in ascending p and cap is the
+    count."""
+    global launches_select
+    if ints.dim() != 2 or ints.shape[0] != N_INTS or sums.shape != (2, ints.shape[1]):
+        raise ValueError(f"ints, sums must be [5, P], [2, P], got {tuple(ints.shape)}, "
+                         f"{tuple(sums.shape)}")
+    if ints.dtype != torch.int32 or sums.dtype != torch.float64 or cov.dtype != torch.float64:
+        raise TypeError(f"ints must be int32, sums and cov float64, got {ints.dtype}, "
+                        f"{sums.dtype}, {cov.dtype}")
+    if not (ints.is_contiguous() and sums.is_contiguous() and cov.is_contiguous()):
+        raise ValueError("ints, sums, cov must be contiguous")
+    if not (ints.device == sums.device == cov.device):
+        raise ValueError("ints, sums, cov must be on one device")
+    P = ints.shape[1]
+    if (cov.shape != (n_samples,) or not 0 <= r0 < n_samples - 1
+            or P > (n_samples - 1 - r0) * (n_samples - r0) // 2 or P >= 2**31):
+        raise ValueError(f"cov {tuple(cov.shape)}, row {r0} or {P} pairs do not fit an "
+                         f"{n_samples}-sample cohort")
+    if ints.device.type == "cpu":
+        return score_select_plain(ints, sums, cov, r0, n_samples, skew, thr_hi)
+    if ints.device.type != "cuda":
+        raise ValueError(f"score_select: unsupported device {ints.device}")
+    lib = csrc.load()
+    keep_i = torch.empty((P, 6), dtype=torch.int32, device=ints.device)
+    keep_f = torch.empty((P, 2), dtype=torch.float64, device=ints.device)
+    count = torch.empty(1, dtype=torch.int32, device=ints.device)
+    rc = lib.ntsm_score_select(
+        ctypes.c_void_p(ints.data_ptr()), ctypes.c_void_p(sums.data_ptr()), P,
+        ctypes.c_void_p(cov.data_ptr()), n_samples, r0, float(skew), float(thr_hi),
+        ctypes.c_void_p(keep_i.data_ptr()), ctypes.c_void_p(keep_f.data_ptr()),
+        ctypes.c_void_p(count.data_ptr()), csrc.stream_ptr(ints.device))
+    csrc.check(lib, rc, "score_select")
+    launches_select += 1
+    return keep_i, keep_f, count
 
 
 def pair_block_stats_plain(a, b, s, ii, jj, mc: int, n_sites: int):

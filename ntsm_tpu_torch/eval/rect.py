@@ -7,7 +7,10 @@ s_single plane computed there.  All-vs-all scores the i<j triangle in row
 blocks with the pair-statistics kernel; -p scores the candidate list in
 slices with the candidate-pair kernel (both in eval/pair_kernel.py).  Each
 block's per-pair (ints, joint, ss) is fetched, finalized on the host in f64
-with the exact engine's transform and emitted.  The TPU engine's wire
+with the exact engine's transform and emitted.  Without -a, where only the
+pairs under -s print, the selection kernel (pair_kernel.score_select)
+drops on the device every pair whose score provably does not, so only the
+rest are fetched and finalized.  The TPU engine's wire
 (u8/u16 planes, the 17 B/pair blob, fetch stacking and grouping, diagonal
 gathers) and its load-overlapped streaming (eval/pca_stream.py) are not
 ported: the card has f64 and a wide host link, so the plain form comes
@@ -33,9 +36,10 @@ SITE_ALIGN = 32  # plane rows padded to 128 bytes; pad sites never count
 BLOCK_PAIRS = 1 << 21  # pairs per row block or -p slice: bounds the fetched block
 # The stages of the device engine (utils/spans.py, area "eval"): samples is
 # the per-sample columns of the rows, formatted once; score is launch (the
-# kernel's enqueue) plus fetch (the block's .cpu(), which waits for the
-# kernel and the copy); -p adds candidates (radii plus search) and tiles
-# (the host plan of each slice).
+# kernels' enqueue) plus fetch (the block's .cpu(), which waits for the
+# kernels and the copy; without -a the kept count, then the kept records);
+# -p adds candidates (radii plus search) and tiles (the host plan of each
+# slice).
 ALL_STAGES = ("upload", "samples", "score", "launch", "fetch", "finalize", "emit")
 PCA_STAGES = ("candidates", "candidates.radii", "candidates.search", "upload", "samples",
               "tiles", "score", "launch", "fetch", "finalize", "emit")
@@ -84,6 +88,26 @@ def block_indices(n_samples: int, r0: int, r1: int):
     return iu, ju
 
 
+def pair_indices(n_samples: int, r0: int, r1: int, p: np.ndarray):
+    """(iu, ju) of the pairs p (indices into the block's np.triu_indices
+    order) of the row block [r0, r1)."""
+    rows = np.arange(r0, r1)
+    per_row = n_samples - 1 - rows
+    starts = np.cumsum(per_row) - per_row
+    t = np.searchsorted(starts, p, side="right") - 1
+    return rows[t], rows[t] + 1 + (p - starts[t])
+
+
+def fetch_selected(keep_i, keep_f, count) -> tuple:
+    """The records of pair_kernel.score_select on the host, in ascending
+    p: (p [k] int64, ints [5, k] int32, sums [2, k] f64).  The count comes
+    first (it waits for the kernels), then only its k records."""
+    k = int(count.cpu()[0])
+    rec_i, rec_f = keep_i[:k].cpu().numpy(), keep_f[:k].cpu().numpy()
+    order = np.argsort(rec_i[:, 0])  # the kept p are distinct
+    return rec_i[order, 0].astype(np.int64), rec_i[order, 1:].T, rec_f[order].T
+
+
 def finalize(data: CountData, opts: Options, iu, ju, ints: np.ndarray, sums: np.ndarray):
     """(f3, i9) row columns of the _pair_columns contract from a block's
     fetched (ints [5, P], sums [2, P]), with the exact engine's f64
@@ -105,7 +129,15 @@ def finalize(data: CountData, opts: Options, iu, ju, ints: np.ndarray, sums: np.
 def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
     """All-vs-all output identical in layout to the exact engine's.
     Returns the seconds spent in each stage (ALL_STAGES: upload, samples,
-    score = launch and fetch, finalize, emit) and the number of row blocks.
+    score = launch and fetch, finalize, emit), the number of row blocks and
+    `kept`, the pairs finalized on the host.
+
+    Without -a in one process, each block's pair statistics go through
+    pair_kernel.score_select where they are: only the pairs it keeps (a
+    superset of those under -s) are fetched, put back in the block's order
+    and finalized, and the emit's exact test drops the rest, so the table
+    is the one a full fetch prints, byte for byte.  With -a every pair
+    prints, and every pair is fetched.
 
     In a process group of W > 1 ranks (parallel/distributed.py; the
     counterpart of ntsm_tpu/eval/rect_mesh.py), block i of the row_blocks
@@ -119,11 +151,15 @@ def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
     out.write("\n")
     N = data.n_samples
     rec = spans.recorder("eval", ALL_STAGES)
-    blocks = 0
+    blocks = kept = 0
     if N < 2:
-        return rec.times(blocks=blocks)
+        return rec.times(blocks=blocks, kept=kept)
+    select = not opts.all and world == 1
     with rec.stage("upload"):
         a, b, s = device_planes(data, device)
+        if select:
+            cov = torch.from_numpy(np.ascontiguousarray(data.cov, dtype=np.float64)).to(a.device)
+            thr_hi = pair_kernel.select_threshold(opts.score_thresh)
         if a.is_cuda:
             torch.cuda.synchronize(a.device)
     with rec.stage("samples"):
@@ -139,22 +175,29 @@ def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
                 with rec.stage("launch"):
                     ints_d, sums_d = pair_kernel.pair_stats(a, b, s, r0, r1, opts.min_cov,
                                                             data.n_sites)
+                    if select:
+                        picked = pair_kernel.score_select(ints_d, sums_d, cov, r0, N,
+                                                          opts.cov_skew, thr_hi)
                 with rec.stage("fetch"):
-                    ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+                    if select:
+                        p, ints, sums = fetch_selected(*picked)
+                    else:
+                        ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
             else:
                 ints, sums = _receive_block(owner, i, pair_kernel.n_block_pairs(N, r0, r1))
         if me != 0:
             sent += _send_block(i, ints, sums)
             continue
         with rec.stage("finalize"):
-            iu, ju = block_indices(N, r0, r1)
+            iu, ju = pair_indices(N, r0, r1, p) if select else block_indices(N, r0, r1)
             f3, i9 = finalize(data, opts, iu, ju, ints, sums)
         with rec.stage("emit"):
             _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w)
         blocks += 1
+        kept += iu.size
     for work, _ in sent:
         work.wait()
-    return rec.times(blocks=blocks)
+    return rec.times(blocks=blocks, kept=kept)
 
 
 def _send_block(i: int, ints: np.ndarray, sums: np.ndarray) -> list:

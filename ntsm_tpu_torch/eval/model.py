@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ntsm_tpu_torch.io.countfile import load_count_arrays, load_count_files
+from ntsm_tpu_torch.io.countfile import load_count_planes
 from ntsm_tpu_torch.options import Options
 from ntsm_tpu_torch.utils import spans
 
@@ -131,38 +131,23 @@ class CountData:
 
 
 def load_count_data(paths, opts: Options) -> CountData:
-    """Load and prepare a cohort: the native bulk loader into int32 planes,
-    else the exact int64 per-file path (reordered loci, int32 overflow, no
-    native library).  The load is the stage `load` of the current stage
-    recorder (utils/spans.py), the prepare its sibling `prepare`."""
+    """Load and prepare a cohort (io/countfile.py:load_count_planes).  The
+    load is the stage `load` of the current stage recorder
+    (utils/spans.py), the prepare its sibling `prepare`."""
     with spans.stage("load"):
         data = _load(paths)
     return data.prepare(opts)
 
 
 def _load(paths) -> CountData:
-    bulk = load_count_arrays(paths)
-    if bulk is not None:
-        locus_ids, distinct, mc, sc, tks, kss = bulk
-        return CountData(
-            filenames=list(paths),
-            locus_ids=locus_ids,
-            distinct=distinct,
-            max_counts=mc,
-            sum_counts=sc,
-            raw_total_kmers=tks,
-            ks=kss,
-            total_counts=mc.sum(axis=(1, 2)),
-        )
-
-    locus_ids, distinct, files = load_count_files(paths)
+    locus_ids, distinct, mc, sc, tks, kss = load_count_planes(paths)
     return CountData(
         filenames=list(paths),
         locus_ids=locus_ids,
         distinct=distinct,
-        max_counts=np.stack([f.max_counts for f in files]),
-        sum_counts=np.stack([f.sum_counts for f in files]),
-        raw_total_kmers=np.array([f.raw_total_kmers for f in files], dtype=np.int64),
-        ks=np.array([f.k for f in files], dtype=np.int64),
-        total_counts=np.array([f.total_counts for f in files], dtype=np.int64),
+        max_counts=mc,
+        sum_counts=sc,
+        raw_total_kmers=tks,
+        ks=kss,
+        total_counts=mc.sum(axis=(1, 2)),
     )

@@ -2,13 +2,13 @@
 
 The host must parse and 2-bit encode FASTQ fast enough to feed the GPU, and
 parse, score and format count files fast enough for ``eval``; the Python
-paths top out far below that.  This directory holds the port's own copies
-of the JAX package's two jax-free C++ sources; this module compiles them
-with g++ into one library in ``build/ntsm_tpu_torch/`` at first use and
-binds it with ctypes:
+paths top out far below that.  This directory holds the port's own C++
+sources, taken from the JAX package's two jax-free ones and cut to the
+entry points the port calls; this module compiles them with g++ into one
+library in ``build/ntsm_tpu_torch/`` at first use and binds it with ctypes:
 
 * ``fastx_reader.cpp``: the FASTQ reader and packer (the analogue of the
-  reference's kseq parser, vendor/kseq.h:178-219), the counts.txt parsers
+  reference's kseq parser, vendor/kseq.h:178-219), the counts.txt parser
   and the eval row formatter;
 * ``exact_pairs.cpp``: the exact engine's f64 pair scorer
   (``ntsm_exact_pairs``) and the ``-p`` projection's helpers
@@ -123,13 +123,6 @@ def load():
         ]
         P, L, D = ctypes.c_void_p, ctypes.c_long, ctypes.c_double
         PL = ctypes.POINTER(ctypes.c_long)
-        lib.ntsm_parse_counts.restype = L
-        lib.ntsm_parse_counts.argtypes = [
-            ctypes.c_char_p, L,  # buf, len
-            P, L,  # ints i64 [cap, 6], cap
-            P, L, PL,  # ids_out, ids_cap, ids_len
-            PL, PL,  # tk, ks
-        ]
         lib.ntsm_parse_counts2.restype = L
         lib.ntsm_parse_counts2.argtypes = [
             ctypes.c_char_p, L,  # buf, len

@@ -1,8 +1,11 @@
-// Copy of ntsm_tpu/native/fastx_reader.cpp, the port's own so that it builds no source of the JAX package.
-// Native FASTA/FASTQ(.gz) chunker + 2-bit batch encoder.
+// The host entry points of the port that are not the exact engine's: the
+// FASTA/FASTQ(.gz) chunker and 2-bit batch encoder, the batch packer, the
+// canonical k-mer hasher, the counts.txt parser and the eval row formatter.
+// Taken from ntsm_tpu/native/fastx_reader.cpp, which the port never builds,
+// and cut to what the port calls.
 //
-// The TPU-native replacement for the role kseq plays in the reference
-// (vendor/kseq.h:178-219 feeding FingerPrint::computeCounts,
+// The reader is the native replacement for the role kseq plays in the
+// reference (vendor/kseq.h:178-219 feeding FingerPrint::computeCounts,
 // src/FingerPrint.hpp:46-87): stream reads off disk, translate to 2-bit
 // codes (A/a=0 C/c=1 G/g=2 T/t/U/u=3, else 4 — vendor/KseqHashIterator.hpp:
 // 114-127), split long reads into seglen segments with a k-1 halo (the
@@ -18,7 +21,8 @@
 // the reference's dead producer-consumer path,
 // vendor/ProdConKseqRunner.hpp:31-184).
 //
-// Build: make -C ntsm_tpu/native   (g++ -O3 -shared -fPIC, links -lz)
+// Built with exact_pairs.cpp into one library by native/__init__.py
+// (g++ -O3 -shared -fPIC, links -lz).
 
 #include <zlib.h>
 
@@ -543,87 +547,6 @@ void ntsm_pack_batch(const uint8_t* codes, int B, int L, uint8_t* packed,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// counts.txt parser (the eval-side load: CompareCounts ctor,
-// src/CompareCounts.hpp:30-114).  Rows are "locusID \t 6 ints"; header
-// lines start with '#' ("#@TK\t<n>", "#@KS\t<k>", column header).
-// Returns the row count; -1 = malformed (caller falls back to Python).
-// ints is [cap, 6] int64; locus ids are written '\n'-joined into ids_out.
-// ---------------------------------------------------------------------------
-
-extern "C" long ntsm_parse_counts(const uint8_t* buf, long len, int64_t* ints,
-                                  long cap, uint8_t* ids_out, long ids_cap,
-                                  long* ids_len, long* tk, long* ks) {
-    *tk = 0;
-    *ks = 0;
-    long rows = 0;
-    long idw = 0;
-    const uint8_t* p = buf;
-    const uint8_t* end = buf + len;
-    while (p < end) {
-        const uint8_t* nl =
-            static_cast<const uint8_t*>(memchr(p, '\n', end - p));
-        const uint8_t* e = nl ? nl : end;
-        if (e > p && e[-1] == '\r') --e;
-        if (e == p) {  // blank line
-            p = nl ? nl + 1 : end;
-            continue;
-        }
-        if (*p == '#') {
-            if (e - p > 5 && p[1] == '@' &&
-                ((p[2] == 'T' && p[3] == 'K') ||
-                 (p[2] == 'K' && p[3] == 'S')) &&
-                p[4] == '\t') {
-                long v = 0;
-                for (const uint8_t* q = p + 5; q < e; ++q) {
-                    if (*q < '0' || *q > '9') return -1;
-                    if (v > kDIG_MAX) return -1;
-                    v = v * 10 + (*q - '0');
-                }
-                if (p[2] == 'T')
-                    *tk = v;
-                else
-                    *ks = v;
-            }
-            p = nl ? nl + 1 : end;
-            continue;
-        }
-        if (rows >= cap) return -1;
-        const uint8_t* tab =
-            static_cast<const uint8_t*>(memchr(p, '\t', e - p));
-        if (!tab) return -1;
-        long idlen = tab - p;
-        if (idw + idlen + 1 > ids_cap) return -1;
-        memcpy(ids_out + idw, p, idlen);
-        idw += idlen;
-        ids_out[idw++] = '\n';
-        const uint8_t* q = tab + 1;
-        for (int col = 0; col < 6; ++col) {
-            bool neg = false;
-            if (q < e && *q == '-') {
-                neg = true;
-                ++q;
-            }
-            if (q >= e || *q < '0' || *q > '9') return -1;
-            int64_t v = 0;
-            while (q < e && *q >= '0' && *q <= '9') {
-                if (v > kDIG_MAX) return -1;
-                v = v * 10 + (*q++ - '0');
-            }
-            ints[rows * 6 + col] = neg ? -v : v;
-            if (col < 5) {
-                if (q >= e || *q != '\t') return -1;
-                ++q;
-            }
-        }
-        if (q != e) return -1;  // trailing junk
-        ++rows;
-        p = nl ? nl + 1 : end;
-    }
-    *ids_len = idw;
-    return rows;
-}
-
-// ---------------------------------------------------------------------------
 // Canonical k-mer hashing over a flat 2-bit code stream (the rolling
 // iterator of vendor/KseqHashIterator.hpp:95-139 as a batch function).
 // codes: n bytes of 0..3 (valid) / >=4 (invalid).  Writes one hash and a
@@ -674,10 +597,17 @@ extern "C" void ntsm_canonical_hashes(const uint8_t* codes, long n, int k,
     }
 }
 
-// Variant that writes the eval engine's final planes directly:
-// mc/sc are int32 [cap, 2] row-major buffers (the per-sample slices of the
-// [N, L, 2] arrays), dist is an optional int64 [cap, 2] (pass NULL to
-// skip).  Returns rows, or -1 on malformed input / int32 overflow.
+// ---------------------------------------------------------------------------
+// counts.txt parser (the eval-side load: CompareCounts ctor,
+// src/CompareCounts.hpp:30-114).  Rows are "locusID \t 6 ints"; header
+// lines start with '#' ("#@TK\t<n>", "#@KS\t<k>", column header).  Writes
+// the eval engine's planes directly: mc/sc are int32 [cap, 2] row-major
+// buffers (one sample's slices of the [N, L, 2] planes, or scratch rows),
+// dist is an optional int64 [cap, 2] for the distinct columns (pass NULL
+// to skip); locus ids are written '\n'-joined into ids_out.  Returns rows,
+// or -1 on malformed input / int32 overflow (the caller's id-mapped
+// Python parse then takes the file).
+// ---------------------------------------------------------------------------
 extern "C" long ntsm_parse_counts2(const uint8_t* buf, long len, int32_t* mc,
                                    int32_t* sc, int64_t* dist, long cap,
                                    uint8_t* ids_out, long ids_cap,
@@ -847,158 +777,6 @@ extern "C" long ntsm_parse_counts2(const uint8_t* buf, long len, int32_t* mc,
     return rows;
 }
 
-// Wire-plane variant for the eval bulk loader: writes countAT/countCG
-// straight into the engine's u16 upload planes (one padded [Lp] row per
-// sample) and accumulates everything else the pipeline ever reads from
-// the full [N, L, 2] arrays — per-site mc/sum totals (merge -o) and
-// per-sample mc/sum totals (cov + error rate) — so neither plane has to
-// be materialized at load time.  At the N=3202 cohort that removes ~5 GB
-// of fresh allocations whose first-touch page faults ran at ~60 MB/s on
-// this host (the dominant, previously unitemized load cost).
-//   wa/wb:    u16 [cap] rows (caller zero-pads the tail)
-//   site_acc: i64 [cap, 4] (mcAT, mcCG, sumAT, sumCG) += per site
-//   samp_acc: i64 [2]      (sum of mc, sum of sum) for this file
-//   dist:     optional i64 [cap, 2] (distinct cols; first file only)
-// Returns rows; -1 malformed; -2 a count column doesn't fit u16 (caller
-// falls back to the int32-plane loader; accumulators are then poisoned
-// and must be discarded).
-extern "C" long ntsm_parse_counts3(const uint8_t* buf, long len, uint16_t* wa,
-                                   uint16_t* wb, int64_t* site_acc,
-                                   int64_t* samp_acc, int64_t* dist, long cap,
-                                   uint8_t* ids_out, long ids_cap,
-                                   long* ids_len, long* tk, long* ks) {
-    *tk = 0;
-    *ks = 0;
-    long rows = 0;
-    long idw = 0;
-    int64_t s_mc = 0, s_sum = 0;
-    const uint8_t* p = buf;
-    const uint8_t* end = buf + len;
-    const uint8_t* last_nl =
-        static_cast<const uint8_t*>(memrchr(buf, '\n', len));
-    const uint8_t* fast_end = last_nl ? last_nl + 1 : buf;
-    while (true) {
-        const uint8_t* e = NULL;  // row end for the careful tail pass
-        if (p < fast_end) {
-            if (*p == '\n') {
-                ++p;
-                continue;
-            }
-            if (*p == '#' || *p == '\r') {
-                const uint8_t* nl = static_cast<const uint8_t*>(
-                    memchr(p, '\n', fast_end - p));
-                e = nl;
-                if (e[-1] == '\r') --e;
-                if (e - p > 5 && p[0] == '#' && p[1] == '@' &&
-                    ((p[2] == 'T' && p[3] == 'K') ||
-                     (p[2] == 'K' && p[3] == 'S')) &&
-                    p[4] == '\t') {
-                    long v = 0;
-                    for (const uint8_t* q = p + 5; q < e; ++q) {
-                        if (*q < '0' || *q > '9') return -1;
-                        if (v > kDIG_MAX) return -1;
-                        v = v * 10 + (*q - '0');
-                    }
-                    if (p[2] == 'T')
-                        *tk = v;
-                    else
-                        *ks = v;
-                }
-                p = nl + 1;
-                continue;
-            }
-        } else if (p < end) {
-            // unterminated tail row: bound every scan by e
-            e = end;
-            if (e[-1] == '\r') --e;
-            if (e == p) break;
-            if (*p == '#') {
-                if (e - p > 5 && p[1] == '@' &&
-                    ((p[2] == 'T' && p[3] == 'K') ||
-                     (p[2] == 'K' && p[3] == 'S')) &&
-                    p[4] == '\t') {
-                    long v = 0;
-                    for (const uint8_t* q = p + 5; q < e; ++q) {
-                        if (*q < '0' || *q > '9') return -1;
-                        if (v > kDIG_MAX) return -1;
-                        v = v * 10 + (*q - '0');
-                    }
-                    if (p[2] == 'T')
-                        *tk = v;
-                    else
-                        *ks = v;
-                }
-                break;
-            }
-        } else {
-            break;
-        }
-        bool fast = p < fast_end;
-        if (rows >= cap) return -1;
-        const uint8_t* lim = fast ? fast_end : e;
-        const uint8_t* tab =
-            static_cast<const uint8_t*>(memchr(p, '\t', lim - p));
-        if (!tab || (fast && memchr(p, '\n', tab - p))) return -1;
-        long idlen = tab - p;
-        if (idw + idlen + 1 > ids_cap) return -1;
-        memcpy(ids_out + idw, p, idlen);
-        idw += idlen;
-        ids_out[idw++] = '\n';
-        const uint8_t* q = tab + 1;
-        int64_t cols[6];
-        for (int col = 0; col < 6; ++col) {
-            bool neg = false;
-            if ((fast || q < e) && *q == '-') {
-                neg = true;
-                ++q;
-            }
-            if ((!fast && q >= e)) return -1;
-            unsigned d = static_cast<unsigned>(*q) - '0';
-            if (d > 9u) return -1;
-            int64_t v = d;
-            ++q;
-            while ((fast || q < e) &&
-                   (d = static_cast<unsigned>(*q) - '0') <= 9u) {
-                if (v > kDIG_MAX) return -1;
-                v = v * 10 + d;
-                ++q;
-            }
-            cols[col] = neg ? -v : v;
-            if (col < 5) {
-                if ((!fast && q >= e) || *q != '\t') return -1;
-                ++q;
-            }
-        }
-        if (fast) {
-            if (*q == '\r') ++q;
-            if (*q != '\n') return -1;
-        } else {
-            if (q != e) return -1;
-        }
-        if (static_cast<uint64_t>(cols[0]) > 65535ULL ||
-            static_cast<uint64_t>(cols[1]) > 65535ULL)
-            return -2;  // u16 wire can't hold it; caller uses the i32 path
-        wa[rows] = static_cast<uint16_t>(cols[0]);
-        wb[rows] = static_cast<uint16_t>(cols[1]);
-        site_acc[rows * 4] += cols[0];
-        site_acc[rows * 4 + 1] += cols[1];
-        site_acc[rows * 4 + 2] += cols[2];
-        site_acc[rows * 4 + 3] += cols[3];
-        s_mc += cols[0] + cols[1];
-        s_sum += cols[2] + cols[3];
-        if (dist) {
-            dist[rows * 2] = cols[4];
-            dist[rows * 2 + 1] = cols[5];
-        }
-        ++rows;
-        p = fast ? q + 1 : end;
-    }
-    samp_acc[0] = s_mc;
-    samp_acc[1] = s_sum;
-    *ids_len = idw;
-    return rows;
-}
-
 // ---------------------------------------------------------------------------
 // Eval row formatter: emits the 26-column summary.tsv rows for a block of
 // sample pairs (resultsStr, src/CompareCounts.hpp:844-921).  The Python
@@ -1078,40 +856,3 @@ extern "C" long ntsm_format_eval_rows(
     }
     return (long)(p - outbuf);
 }
-
-extern "C" {
-
-// Host side of the BREAKS wire in one pass (the numpy form costs
-// ~32 ms per 32768x256 batch — 60% of the per-batch host budget at
-// 80 Mbase/s — via three [B, L] mask/nonzero passes; this scan is
-// ~2 ms).  side layout per kernel_v2.SIDE_*: row_len u16 LE + maxb
-// u16 LE invalid positions, 0xFFFF pad.  Returns 0, or -1 when any
-// row has more than maxb in-length invalid slots (caller ships the
-// legacy vbits wire for the batch).
-int ntsm_breaks_sidecar(const uint8_t* codes, const int32_t* lengths,
-                        long B, long L, int maxb, uint8_t* side) {
-    const long sbytes = 2 + 2 * static_cast<long>(maxb);
-    for (long r = 0; r < B; ++r) {
-        const uint8_t* row = codes + r * L;
-        uint8_t* s = side + r * sbytes;
-        const int32_t len = lengths[r];
-        s[0] = static_cast<uint8_t>(len & 0xFF);
-        s[1] = static_cast<uint8_t>((len >> 8) & 0xFF);
-        int n = 0;
-        for (int32_t j = 0; j < len; ++j) {
-            if (row[j] > 3) {
-                if (n == maxb) return -1;
-                s[2 + 2 * n] = static_cast<uint8_t>(j & 0xFF);
-                s[3 + 2 * n] = static_cast<uint8_t>((j >> 8) & 0xFF);
-                ++n;
-            }
-        }
-        for (; n < maxb; ++n) {
-            s[2 + 2 * n] = 0xFF;
-            s[3 + 2 * n] = 0xFF;
-        }
-    }
-    return 0;
-}
-
-}  // extern "C"

@@ -2,8 +2,9 @@
 io/countfile.py) against the benchmark's plain reader and scorer
 (portbench/ref_countfile.py, portbench/ref_eval.py) on seeded count files:
 the native path, a file whose loci come in another order (the id-mapped
-parse), a value past int32 (the int64 path) and files without #@ headers
-(as `ntsm vcf` writes them); the loader's counters; the load's and the
+fill), a value past int32 in a later file and in the first (the planes
+widened to int64) and files without #@ headers (as `ntsm vcf` writes
+them); the loader's counters, each file read once; the load's and the
 prepare's spans in a profiled run; the CLI's stdout with the recorder on
 and off."""
 
@@ -27,8 +28,9 @@ from portbench import ref_countfile, ref_eval, tracefile
 torch.set_num_threads(1)
 
 N, L = 8, 300
-CASES = ("native", "reordered", "int64", "no_headers")
-REORDERED, BIG = 5, 4  # the file whose loci are shuffled; the file with a sum past int32
+CASES = ("native", "reordered", "int64", "first_int64", "no_headers")
+REORDERED = 5  # the file whose loci are shuffled
+BIG = {"int64": 4, "first_int64": 0}  # the file with a sum past int32
 FLOATS = ("score", "relate", "homConcord", "cov1", "cov2", "errorRate1", "errorRate2")
 INTS = ("ibs0", "ibs2", "het1", "het2", "sharedHet", "hom1", "hom2", "sharedHom", "n",
         "miss1", "miss2", "allHom1", "allHom2", "allHet1", "allHet2")
@@ -55,7 +57,7 @@ def write_cohort(directory, case: str) -> list:
         if case == "reordered" and s == REORDERED:
             order = rng.permutation(L)
         sm = sums[s].copy()
-        if case == "int64" and s == BIG:
+        if s == BIG.get(case):
             sm[7, 0] = 2**31 + 12345
         tk, k = (None, None) if case == "no_headers" else (int(mx[s].sum()) * 37000, 19)
         text = format_counts([ids[i] for i in order], mx[s][order], sm[order], distinct[order],
@@ -102,8 +104,10 @@ def test_load_equals_the_plain_reader(case, tmp_path):
     np.testing.assert_allclose(got.cov, cols["cov"], rtol=1e-15)
     np.testing.assert_allclose(got.error_rate, cols["error_rate"], rtol=1e-13)
     assert (got.error_rate == -1.0).all() == (case == "no_headers")
-    if case == "int64":
-        assert got.sum_counts.dtype == np.int64 and got.sum_counts[BIG, 7, 0] == 2**31 + 12345
+    if case in BIG:
+        assert got.sum_counts.dtype == np.int64 and got.sum_counts[BIG[case], 7, 0] == 2**31 + 12345
+    else:
+        assert got.max_counts.dtype == got.sum_counts.dtype == np.int32
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -150,13 +154,9 @@ def test_counters_match_the_files(case, tmp_path):
     before = dict(countfile.counters)
     load_count_data(paths, Options())
     got = {k: countfile.counters[k] - before[k] for k in before}
-    if case == "int64":
-        # the bulk loader reads files 0..BIG, leaves it at BIG's overflow,
-        # and the int64 path reads every file again
-        want = dict(files=BIG + 1 + N, bytes=sum(sizes[: BIG + 1]) + sum(sizes),
-                    exact_files=1 + N)
-    else:
-        want = dict(files=N, bytes=sum(sizes), exact_files=int(case == "reordered"))
+    # every file read once; the id-mapped fill takes the reordered file and
+    # the file with the value past int32
+    want = dict(files=N, bytes=sum(sizes), exact_files=int(case in ("reordered", *BIG)))
     assert got == want
 
 

@@ -19,7 +19,7 @@ from ntsm_tpu.io.countfile import load_count_files as jax_load_count_files
 from ntsm_tpu.options import Options as JOptions
 from ntsm_tpu_torch.cli import eval_cmd, main
 from ntsm_tpu_torch.eval.model import load_count_data
-from ntsm_tpu_torch.io.countfile import format_counts, load_count_files
+from ntsm_tpu_torch.io.countfile import format_counts, load_count_planes
 from ntsm_tpu_torch.options import Options
 
 torch.set_num_threads(1)
@@ -270,7 +270,8 @@ def test_main_dispatches_eval(capsys, monkeypatch):
 
 def test_loaders_match_jax(tmp_path):
     """load_count_data against the JAX package's on the fixtures, and the
-    fallbacks of load_count_arrays: a file with reordered loci and a file
+    id-mapped fill of load_count_planes against the JAX package's
+    per-file loader: a file with reordered loci, and that file beside one
     with a count beyond int32."""
     paths = [str(FIX / f) for f in COUNT_FILES]
     for mc in (0, 1, 2):
@@ -298,14 +299,15 @@ def test_loaders_match_jax(tmp_path):
         np.testing.assert_array_equal(got.max_counts, want.max_counts)
         np.testing.assert_array_equal(got.sum_counts, want.sum_counts)
         np.testing.assert_array_equal(got.cov, want.cov)
-        g_ids, g_dist, g_files = load_count_files(files)
+        g_ids, g_dist, g_mc, g_sc, g_tks, g_kss = load_count_planes(files)
         w_ids, w_dist, w_files = jax_load_count_files(files)
         assert g_ids == w_ids
         np.testing.assert_array_equal(g_dist, w_dist)
-        for g, w in zip(g_files, w_files):
-            np.testing.assert_array_equal(g.max_counts, w.max_counts)
-            assert (g.raw_total_kmers, g.k, g.total_counts) == (
-                w.raw_total_kmers, w.k, w.total_counts)
+        np.testing.assert_array_equal(g_mc, np.stack([w.max_counts for w in w_files]))
+        np.testing.assert_array_equal(g_sc, np.stack([w.sum_counts for w in w_files]))
+        assert (list(g_tks), list(g_kss), list(g_mc.sum(axis=(1, 2)))) == (
+            [w.raw_total_kmers for w in w_files], [w.k for w in w_files],
+            [w.total_counts for w in w_files])
 
 
 def test_format_counts_round_trip(tmp_path):

@@ -50,17 +50,16 @@ def test_fixture_byte_parity(converted, name):
 
 def test_output_counts_roundtrip(converted, tmp_path):
     """Count files written by --output-counts read back through the port's
-    loaders and hold genotype-consistent values (multi for het, 2*multi for
+    loader and hold genotype-consistent values (multi for het, 2*multi for
     hom)."""
     from ntsm_tpu_torch.eval.model import load_count_data
-    from ntsm_tpu_torch.io.countfile import load_count_files
+    from ntsm_tpu_torch.io.countfile import load_count_planes
 
     conv, _ = converted
     conv.output_counts(str(tmp_path))
     paths = [str(tmp_path / f"{sid}.counts.txt") for sid in conv.sample_ids]
-    locus_ids, distinct, files = load_count_files(paths)
+    locus_ids, distinct, mc, sc, tks, kss = load_count_planes(paths)
     assert locus_ids == conv.table.site_ids
-    mc = np.stack([f.max_counts for f in files])
     assert set(np.unique(mc)) <= {0, 20, 40}
     data = load_count_data(paths, Options())
     np.testing.assert_array_equal(data.max_counts, mc)

@@ -16,6 +16,12 @@ PAIR_COL_KEYS = (
 )
 
 
+# the native row formatter's float fields (score, relatedness, homConcord,
+# and the distance under -p) and those of them snprintf printed: nan, inf
+# and |x| >= 2^40 (float_slow / float_fields is the share off the fast path)
+counters = {"float_fields": 0, "float_slow": 0}
+
+
 def _load_row_formatter():
     """The native row-formatter lib, or None (Python per-row fallback)."""
     from ntsm_tpu_torch import native
@@ -150,6 +156,7 @@ def _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, dist, samp_w=None):
     if raw is not None:
         out.flush()  # anything buffered in the text layer goes first
     vp = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    slow = ctypes.c_long(0)
     for c0 in range(0, P, CHROWS):
         c1 = min(c0 + CHROWS, P)
         blk = c1 - c0
@@ -160,12 +167,14 @@ def _emit_rows_native(lib, data, out, ii, jj, f3, i9, same, dist, samp_w=None):
             nb = lib.ntsm_format_eval_rows(
                 blk, vp(ii[c0:c1]), vp(jj[c0:c1]), vp(f3b), vp(i9b),
                 vp(same[c0:c1]), None if db is None else vp(db),
-                vp(samp), w, N, vp(buf), buf.shape[0],
+                vp(samp), w, N, vp(buf), buf.shape[0], ctypes.byref(slow),
             )
             if nb >= 0:
                 break
             # pathological rows (e.g. DBL_MAX scores print 316 chars/field)
             buf = np.empty(buf.shape[0] * 4, dtype=np.uint8)
+        counters["float_fields"] += blk * (3 if dist is None else 4)
+        counters["float_slow"] += slow.value
         if raw is not None:
             raw.write(memoryview(buf[:nb]))
         else:

@@ -9,7 +9,8 @@ library in ``build/ntsm_tpu_torch/`` at first use and binds it with ctypes:
 
 * ``fastx_reader.cpp``: the FASTQ reader and packer (the analogue of the
   reference's kseq parser, vendor/kseq.h:178-219), the counts.txt parser
-  and the eval row formatter;
+  and the eval row formatter (its float fields through ``ntsm_format_f6``'s
+  routine, an exact fixed-point ``%f``);
 * ``exact_pairs.cpp``: the exact engine's f64 pair scorer
   (``ntsm_exact_pairs``) and the ``-p`` projection's helpers
   (``ntsm_quantize_vals``, ``ntsm_project_exact``).
@@ -142,8 +143,10 @@ def load():
             L, P, P,  # n_pairs, ii i32, jj i32
             P, P, P, P,  # f3 f64 [P,3], i9 i64 [P,9], same u8, dist f64 or NULL
             P, L, L,  # samp bytes [n_samp, 6] of width samp_w, samp_w, n_samp
-            P, L,  # outbuf, outcap
+            P, L, PL,  # outbuf, outcap, n_slow (the float fields snprintf printed) or NULL
         ]
+        lib.ntsm_format_f6.restype = L
+        lib.ntsm_format_f6.argtypes = [D, P]  # x, out (>= 340 bytes); the tests' entry
         lib.ntsm_quantize_vals.restype = None
         lib.ntsm_quantize_vals.argtypes = [
             P, P, ctypes.c_int,  # a, b count rows, dsize (bytes a count)

@@ -782,9 +782,10 @@ extern "C" long ntsm_parse_counts2(const uint8_t* buf, long len, int32_t* mc,
 // sample pairs (resultsStr, src/CompareCounts.hpp:844-921).  The Python
 // emission loop costs ~10-50 us/row (5.1M rows at the N=3202 cohort =
 // minutes of pure host formatting); this does the same work at ~1 us/row.
-// Float columns use snprintf("%f") — byte-identical to std::to_string
-// (both are vsnprintf "%f" under glibc, including nan/-nan/inf spellings,
-// utils/formats.py:cpp_to_string).
+// Float columns are glibc's "%f", as std::to_string prints them
+// (utils/formats.py:cpp_to_string): fmt_f6 below writes every finite value
+// under 2^40 itself, exactly, and hands the rest (nan, -nan, +-inf, huge
+// values such as an n = 0 pair's DBL_MAX score) to snprintf("%f").
 //
 // Inputs:
 //   ii/jj      [P] i32 sample indices per pair
@@ -797,6 +798,7 @@ extern "C" long ntsm_parse_counts2(const uint8_t* buf, long len, int32_t* mc,
 //              homs, hets (per-sample values are formatted once on the
 //              Python side)
 //   outbuf     [outcap] output; rows are '\t'-joined, '\n'-terminated
+//   n_slow     out (NULL allowed): the float fields that took snprintf
 // Returns bytes written, or -1 if outbuf would overflow (caller retries
 // with a bigger buffer / smaller block).
 
@@ -810,11 +812,61 @@ static inline char* fmt_i64(char* p, int64_t v) {
     return p;
 }
 
+// x as "%f" prints it: fixed, six decimals, the exact value rounded half to
+// even (glibc's result in the default rounding mode), "-" for a set sign
+// bit, so -0.0 and negatives that round to zero print "-0.000000".  The
+// decimal point is '.', which is what snprintf writes in the C LC_NUMERIC
+// locale the process runs under (Python sets LC_CTYPE alone).  A finite x
+// with |x| < 2^40 is m * 2^e with an integer significand m < 2^53 and
+// e <= -13 (e = -1074 for subnormals), so x * 10^6 = (m * 10^6) >> -e: one
+// 128-bit product and shift give the quotient and the exact remainder.
+// Every other value goes to snprintf ("nan", "-nan", "inf", "-inf", and
+// the up to 309 digits of a huge one); *slow counts those.
+static inline char* fmt_f6(char* p, double x, long* slow) {
+    uint64_t bits;
+    memcpy(&bits, &x, sizeof bits);
+    const int be = (int)((bits >> 52) & 0x7ff);
+    if (be >= 1023 + 40) {  // inf, nan, |x| >= 2^40
+        ++*slow;
+        return p + snprintf(p, 340, "%f", x);
+    }
+    const uint64_t frac = bits & ((1ull << 52) - 1);
+    const uint64_t m = be ? frac | (1ull << 52) : frac;
+    const int s = be ? 1075 - be : 1074;  // x = m * 2^-s, s >= 13
+    const unsigned __int128 v = (unsigned __int128)m * 1000000u;  // < 2^73
+    uint64_t q = 0;
+    if (s < 74) {  // from 74 on, v < 2^73 <= half a unit: q = 0
+        q = (uint64_t)(v >> s);
+        const unsigned __int128 r = v & ((((unsigned __int128)1) << s) - 1);
+        const unsigned __int128 half = ((unsigned __int128)1) << (s - 1);
+        // bitwise, not &&/||: the direction is random, and a branch on it
+        // mispredicts half the time
+        q += (uint64_t)((r > half) | ((r == half) & (q & 1)));
+    }
+    *p = '-';
+    p += bits >> 63;  // the sign, without a branch
+    p = fmt_i64(p, (int64_t)(q / 1000000));
+    *p++ = '.';
+    uint32_t d = (uint32_t)(q % 1000000);
+    for (int k = 6; k-- > 0;) { p[k] = (char)('0' + d % 10); d /= 10; }
+    return p + 6;
+}
+
+// fmt_f6 alone, for the tests: x formatted into out (>= 340 bytes); returns
+// the length, or -(length) where snprintf printed it.
+extern "C" long ntsm_format_f6(double x, char* out) {
+    long slow = 0;
+    const long n = (long)(fmt_f6(out, x, &slow) - out);
+    return slow ? -n : n;
+}
+
 extern "C" long ntsm_format_eval_rows(
     long n_pairs, const int32_t* ii, const int32_t* jj, const double* f3,
     const int64_t* i9, const uint8_t* same, const double* dist,
-    const char* samp, long samp_w, long n_samp, char* outbuf, long outcap) {
+    const char* samp, long samp_w, long n_samp, char* outbuf, long outcap,
+    long* n_slow) {
     (void)n_samp;
+    long slow = 0;
     char* p = outbuf;
     char* const cap = outbuf + outcap;
     // worst case per float field: -1.8e308 in %f = 310 digits + '.' + 6
@@ -830,19 +882,19 @@ extern "C" long ntsm_format_eval_rows(
         size_t n = strnlen(si, samp_w); memcpy(p, si, n); p += n; *p++ = '\t';
         n = strnlen(sj, samp_w); memcpy(p, sj, n); p += n; *p++ = '\t';
         // score \t same \t dist(-1) \t relate \t
-        p += snprintf(p, 340, "%f", f[0]); *p++ = '\t';
+        p = fmt_f6(p, f[0], &slow); *p++ = '\t';
         *p++ = (char)same[r]; *p++ = '\t';
         if (dist) {  // -p mode: squared PCA distance; -a prints "-1"
-            p += snprintf(p, 340, "%f", dist[r]);
+            p = fmt_f6(p, dist[r], &slow);
         } else {
             *p++ = '-'; *p++ = '1';
         }
         *p++ = '\t';
-        p += snprintf(p, 340, "%f", f[1]); *p++ = '\t';
+        p = fmt_f6(p, f[1], &slow); *p++ = '\t';
         // ibs0 \t ibs2 \t homConcord \t
         p = fmt_i64(p, g[0]); *p++ = '\t';
         p = fmt_i64(p, g[1]); *p++ = '\t';
-        p += snprintf(p, 340, "%f", f[2]); *p++ = '\t';
+        p = fmt_f6(p, f[2], &slow); *p++ = '\t';
         // hets1 hets2 sharedHet homs1 homs2 sharedHom n
         for (int c = 2; c < 9; ++c) { p = fmt_i64(p, g[c]); *p++ = '\t'; }
         // cov1 cov2 err1 err2 miss1 miss2 homs1 homs2 hets1 hets2
@@ -854,5 +906,6 @@ extern "C" long ntsm_format_eval_rows(
             *p++ = (c < 5) ? '\t' : '\n';
         }
     }
+    if (n_slow) *n_slow = slow;
     return (long)(p - outbuf);
 }

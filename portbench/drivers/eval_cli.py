@@ -94,15 +94,6 @@ def write_count_files(directory: str, names: list, mx: np.ndarray, cfg: dict) ->
         return sum(pool.map(one, range(N)))
 
 
-def sizes(run) -> tuple:
-    """(N, L) of the run; on the CPU (the harness's own tests, the kernels'
-    plain versions) cut to the configuration's `cpu_sizes`."""
-    if run.device == "cpu":
-        cut = {k: v for k, v in run.config.get("cpu_sizes", {}).items() if k in run.config}
-        run.config = dict(run.config, **{k: min(run.config[k], v) for k, v in cut.items()})
-    return run.config["n_samples"], run.config["n_sites"]
-
-
 def call(argv: list, directory: str, table: str) -> None:
     """`ntsm eval <argv>` run from `directory`, its stdout into the file
     `table`; raises where it exits other than 0."""
@@ -122,8 +113,8 @@ def call(argv: list, directory: str, table: str) -> None:
 
 
 def setup(run) -> None:
-    N, L = sizes(run)
     cfg, tf, st = run.config, run.traffic, run.state
+    N, L = cfg["n_samples"], cfg["n_sites"]
     t0 = time.monotonic()
     mx, edges = gen.make_cohort(run.device, run.seed, N, L, tf["cov_lo"], tf["cov_hi"],
                                 tf["crosstalk"], tf["dup_share"])
@@ -222,17 +213,6 @@ judge_rows = cohort.judge_rows
 control_outputs = cohort.control_outputs
 
 
-def _covered(t: tr.Trace, lo: float, hi: float) -> float:
-    """Seconds of [lo, hi] under the union of the program's ntsm.eval spans."""
-    covered, reach = 0.0, lo
-    for s, e in sorted((s, e) for n, s, e, _ in t.spans if n.startswith("ntsm.eval.")):
-        s, e = max(s, reach), min(e, hi)
-        if e > s:
-            covered += e - s
-            reach = e
-    return covered
-
-
 def layer_context(run, outs: list) -> dict:
     """Each traced pass's trace and bytes read, the device's busy time."""
     traces, read, busy, window, gaps, cover = [], [], 0.0, 0.0, [], []
@@ -246,7 +226,7 @@ def layer_context(run, outs: list) -> dict:
         busy += tr.busy_s(t, *w)
         window += w[1] - w[0]
         gaps += tr.idle_gaps(t, *w)
-        cover.append(_covered(t, *w) / (w[1] - w[0]))
+        cover.append(tr.covered_s(t, ("ntsm.eval.",), *w) / (w[1] - w[0]))
     print("portbench: the ntsm.eval spans cover "
           + ", ".join(f"{100 * c:.1f}%" for c in cover) + " of the traced passes", file=sys.stderr)
     names = sorted({n for t in traces for n, _, _, _ in t.spans if n.startswith("ntsm.eval.")})

@@ -2,7 +2,8 @@
 run the real drivers on tiny configurations of their own, in a temporary
 directory, so that nothing under portbench/ is edited.  The manifest holds
 the committed cells and those under portbench/pending/ (entries kept for a
-later BENCHMARK.json), so every driver is tested."""
+later BENCHMARK.json; the directory may be empty or absent), so every
+driver is tested."""
 
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ if ROOT not in sys.path:
 TINY_SIZES = {
     "hs_n10_sample": dict(n_sites=300, reads_per_file=3000),
     "hs_n10_cohort3202": dict(n_samples=40, n_sites=600),
+    "hs_n10_files320": dict(n_samples=40, n_sites=600),
 }
-TINY_TRAFFIC = dict(warmup_reads=500, sample_pairs=100, warmup_samples=8, carry=0.3,
-                    dup_share=0.1)
+TINY_TRAFFIC = dict(sample_pairs=100, warmup_samples=8, carry=0.3, dup_share=0.1)
 
 
 def _load(path):
@@ -35,7 +36,7 @@ def manifest():
     """BENCHMARK.json with the entries of portbench/pending/ added."""
     bench = _load(os.path.join(ROOT, "BENCHMARK.json"))
     pending = os.path.join(BENCH, "pending")
-    for name in sorted(os.listdir(pending)):
+    for name in sorted(os.listdir(pending)) if os.path.isdir(pending) else []:
         for key, entries in _load(os.path.join(pending, name)).items():
             bench[key] += entries
     return bench

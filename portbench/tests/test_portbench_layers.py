@@ -53,6 +53,9 @@ def test_trace_reading_by_hand():
     assert t.window() == (0.0, pytest.approx(1100e-6))
     assert t.span_total("ntsm.count.wait") == (pytest.approx(800e-6), 2)
     assert tr.busy_s(t, 0.0, 1100e-6) == pytest.approx(120e-6)  # 650-730 and 950-1000
+    loop = ("ntsm.count.wait", "ntsm.count.dispatch")  # 0-1000, the drain left out
+    assert tr.covered_s(t, loop, 0.0, 1100e-6) == pytest.approx(1000e-6)
+    assert tr.covered_s(t, loop, 650e-6, 950e-6) == pytest.approx(300e-6)
     gaps = tr.idle_gaps(t, 0.0, 1100e-6)
     assert gaps[0] == ("ntsm.count.wait", pytest.approx(650e-6))
     assert tr.top_kernels([t])[0] == ["void count_step_kernel(PackedBatch, int)",
@@ -76,6 +79,75 @@ def test_readers_return_nothing_without_device_work():
                  "eval.pair_stats_roofline", "eval_pca.pair_block_roofline", "eval.score_s",
                  "count.wait_share", "count.dispatch_ms"):
         assert read(name, ctx) is None, name
+
+
+def feed_trace(parse, pack, table):
+    """One pass of the host feed's spans: `parse` [(tid, ts, dur)] of the
+    reader threads, `pack` [(ts, dur)] of the producer, the consumer's
+    table span of `table` us."""
+    u = "user_annotation"
+    return tr.parse({"traceEvents": [
+        *(dict(ev("ntsm.count.parse", ts, d, u), tid=tid) for tid, ts, d in parse),
+        *(dict(ev("ntsm.count.pack", ts, d, u), tid=3) for ts, d in pack),
+        dict(ev("ntsm.count.table", 0, table, u), tid=1),
+        dict(ev("ntsm.count.wait", table, 900, u), tid=1)]})
+
+
+def test_feed_readers_sum_threads_and_average_passes():
+    """Pass 1: parse 300 + 200 on thread 11 and 150 + 400 on thread 12,
+    pack 60 + 40, table 90; pass 2: parse 500 and 300, pack 50, table 110
+    (us).  A reader gives the mean over the passes of the sum over the
+    threads."""
+    ctx = dict(traces=[
+        feed_trace([(11, 0, 300), (12, 100, 150), (11, 400, 200), (12, 300, 400)],
+                   [(200, 60), (500, 40)], 90),
+        feed_trace([(11, 0, 500), (12, 0, 300)], [(600, 50)], 110)])
+    assert read("count.parse_s", ctx) == pytest.approx((1050 + 800) / 2 * 1e-6)
+    assert read("count.pack_s", ctx) == pytest.approx((100 + 50) / 2 * 1e-6)
+    assert read("count.table_s", ctx) == pytest.approx((90 + 110) / 2 * 1e-6)
+
+
+@pytest.mark.parametrize("name", ["count.parse_s", "count.pack_s", "count.table_s"])
+def test_feed_readers_return_nothing_without_their_span(name):
+    bare = tr.parse({"traceEvents": [ev("ntsm.count.wait", 0, 900, "user_annotation"),
+                                     ev("ntsm.count.dispatch", 900, 100, "user_annotation")]})
+    assert read(name, dict(traces=[bare, bare])) is None
+
+
+def test_parse_spans_of_two_threads_reach_the_reader(tmp_path):
+    """The program's stage recorder keeps the spans of threads that the
+    profiler does not reach and writes them into the exported trace on
+    their own thread ids: both reader threads' parse spans are in the
+    trace, and count.parse_s is their summed seconds."""
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ntsm_tpu_torch.utils import spans
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec = spans.Recorder("count", ("parse",))
+
+        def parse():
+            for _ in range(3):
+                with rec.stage("parse"):
+                    time.sleep(0.002)
+
+        threads = [threading.Thread(target=parse) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    path = spans.export_trace(prof, str(tmp_path))
+    rec.write_into(path)
+    with open(path) as fh:
+        obj = json.load(fh)
+    parsed = [e for e in obj["traceEvents"] if e.get("name") == "ntsm.count.parse"]
+    assert len(parsed) == 6 and len({e["tid"] for e in parsed}) == 2
+    got = read("count.parse_s", dict(traces=[tr.parse(obj)]))
+    assert got == pytest.approx(rec.budget["parse"], rel=1e-6)
+    assert got >= 6 * 0.002
 
 
 def test_eval_readers():

@@ -71,7 +71,7 @@ def test_a_new_cell_needs_only_files_of_its_own(tmp_path, tiny):
     cfg.update(n_sites=120, reads_per_file=800)
     (tmp_path / "configs" / "extra_sample.json").write_text(json.dumps(cfg))
     tf = R.load_json(os.path.join(BENCH, "traffic", "wgs_pe150.json"))
-    tf.update(carry=0.5, sub_rate=0.01, warmup_reads=100)
+    tf.update(carry=0.5, sub_rate=0.01)
     (tmp_path / "traffic" / "dense_reads.json").write_text(json.dumps(tf))
     bench["workloads"].append(dict(name="count.dense", config="extra_sample",
                                    traffic="dense_reads", chips=1, why="a throwaway cell"))
@@ -82,6 +82,34 @@ def test_a_new_cell_needs_only_files_of_its_own(tmp_path, tiny):
                      manifest_path=str(tmp_path / "BENCHMARK.json"),
                      search=[str(tmp_path)] + tiny[1])
     assert res["correct"] and set(res["metrics"]) == {"count_mbase_s", "setup_s"}
+
+
+def test_the_count_cell_waits_whole_in_pending(monkeypatch, tmp_path):
+    """count.wgs_pe150, its configuration and its metrics wait in
+    portbench/pending/ (its run-to-run spread, PERF.md), each metric
+    listing the cell, and the CPU tests' manifest adds them; a pending/
+    that is empty or absent adds nothing."""
+    import conftest
+
+    bench = R.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    pending = R.load_json(os.path.join(BENCH, "pending", "count.wgs_pe150.json"))
+    cell = pending["workloads"][0]
+    assert (cell["name"], cell["config"], cell["traffic"], cell["chips"]) == (
+        "count.wgs_pe150", "hs_n10_sample", "wgs_pe150", 1)
+    assert [c["name"] for c in pending["configs"]] == ["hs_n10_sample"]
+    assert [m["name"] for m in pending["end_to_end"]] == ["count_mbase_s"]
+    assert {m["name"] for m in pending["per_layer"]} == {
+        "count.wait_share", "count.dispatch_ms", "count.step_roofline", "count.device_idle",
+        "count.parse_s", "count.pack_s", "count.table_s"}
+    assert all(m["workloads"] == [cell["name"]]
+               for m in pending["end_to_end"] + pending["per_layer"])
+    assert cell["name"] not in {w["name"] for w in bench["workloads"]}
+    assert cell["name"] in cells()
+    for with_dir in (False, True):
+        bare = tmp_path / f"bench{int(with_dir)}"
+        (bare / "pending" if with_dir else bare).mkdir(parents=True)
+        monkeypatch.setattr(conftest, "BENCH", str(bare))
+        assert conftest.manifest() == bench
 
 
 def test_nothing_loads_jax_or_the_jax_package(tiny):

@@ -80,6 +80,18 @@ def busy_intervals(trace: Trace, lo: float, hi: float) -> list:
     return out
 
 
+def covered_s(trace: Trace, prefixes: tuple, lo: float, hi: float) -> float:
+    """Seconds of [lo, hi] under the union of the host spans whose names
+    start with one of `prefixes`."""
+    covered, reach = 0.0, lo
+    for s, e in sorted((s, e) for n, s, e, _ in trace.spans if n.startswith(prefixes)):
+        s, e = max(s, reach), min(e, hi)
+        if e > s:
+            covered += e - s
+            reach = e
+    return covered
+
+
 def busy_s(trace: Trace, lo: float, hi: float) -> float:
     return sum(e - s for s, e in busy_intervals(trace, lo, hi))
 

@@ -61,10 +61,13 @@ result; any failure raises and ends the run with a non-zero exit:
      96,287-site x 20-PC rotation, against ``--engine exact``: the same
      pairs in the same order, non-score columns (dist included)
      byte-identical, scores within 1e-9 max(1, |score|); the candidate-pair
-     kernel launched and the all-vs-all one not
+     kernel launched and the all-vs-all one not; the candidate search's
+     radius kernel launched once for its count pass and once for its write
+     pass (phases 11 and 17c check the same)
  11. the -p scorer at N = 3202 of the same design, in memory; its stage
      times (the plans' and the projection's split among them), the
-     projection's quantize launched once a 128-row block, the cloud from
+     projection's quantize launched once a 128-row block, the radius
+     kernel as in phase 10, the cloud from
      the card's planes equal to the host's project_pcs bit for bit, and its
      first rows against the exact engine; then the candidate-pair kernel alone
      on its candidate list as phase 9 runs it, the plain version on a
@@ -175,6 +178,13 @@ result; any failure raises and ends the run with a non-zero exit:
      card, each record the block's values, the count every pair where all
      survive; device times beside the byte bound (36 B a pair read, 40 B a
      kept pair written) and the plain version's
+ 23. the -p candidate search's radius kernel (``csrc/pca_radius.cu``)
+     alone at N = 32,768 in 20 dimensions: the matches of 1,024 rows
+     equal to the host's distances bit for bit, the list of 4,096 samples
+     equal to ``pca_candidate_arrays``', each pass's device time beside the
+     least work of any search and a brute-force search's f64 work
+     (``chip_smoke.check_pca_radius``, callable alone); its launches stay
+     out of the kernels line, which counts those of phases 10, 11 and 17c
   then, passed or failed, every process the run started that is still
      there is stopped and reaped (the resource tracker of the spawn pools
      of phases 6 and 10, and anything a child left behind: this process is
@@ -205,6 +215,7 @@ timed apart).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import filecmp
 import io
 import json
@@ -503,7 +514,7 @@ def reset_launches() -> None:
     """Every kernel's launch counter to 0, just before a path is driven."""
     from ntsm_tpu_torch.count import hash_kernel, kernel_v2, kernel_v3
     from ntsm_tpu_torch.count import kernel as kernel_v1
-    from ntsm_tpu_torch.eval import pair_kernel, project_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, project_kernel, search_kernel
     from ntsm_tpu_torch.experiments import exp_dma_probe, gather
 
     hash_kernel.launches = hash_kernel.launches_codes = kernel_v3.launches = 0
@@ -512,8 +523,24 @@ def reset_launches() -> None:
     pair_kernel.launches = pair_kernel.launches_block = pair_kernel.launches_block_sparse = 0
     pair_kernel.launches_select = 0
     project_kernel.launches_project = 0
+    search_kernel.launches_radius = 0
     gather.launches.update(dict.fromkeys(gather.launches, 0))
     exp_dma_probe.launches = 0
+
+
+def radius_launches(n: int, within: int, what: str) -> int:
+    """The radius kernel's launches since reset_launches, checked against
+    one device search of an n-sample cohort (one row block of
+    eval/search_kernel.py) with `within` pairs inside a finite radius
+    (eval/pca.py:counters): a counting pass, and a writing pass where
+    there are matches."""
+    from ntsm_tpu_torch.eval import search_kernel
+
+    check(n <= search_kernel.SEARCH_ROWS, f"{what}: {n} samples are more than one row block")
+    got = search_kernel.launches_radius
+    check(got == 1 + (within > 0), f"{what}: the radius kernel launched {got} times for "
+          f"{within} pairs inside a finite radius (the device search did not run)")
+    return got
 
 
 def main_path(device, work: str, rng, card: str) -> tuple:
@@ -1213,7 +1240,7 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
 
     import torch
 
-    from ntsm_tpu_torch.eval import pair_kernel, project_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, pca, project_kernel
     from ntsm_tpu_torch.eval.pca import PROJ_BLK
     from ntsm_tpu_torch.options import Options
 
@@ -1248,12 +1275,15 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
     n_pairs = N_EVAL_FILES * (N_EVAL_FILES - 1) // 2
     args = ["-a", "-p", rot, "-n", norm, *paths]
     reset_launches()
+    within = pca.counters["within_radius"]
     t0 = time.monotonic()
     got = cli_eval(args)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse,
-                project_kernel.launches_project)
+                project_kernel.launches_project,
+                radius_launches(N_EVAL_FILES, pca.counters["within_radius"] - within,
+                                "phase 10 eval -p"))
     check(sum(launches[:2]) > 0, "eval -p did not launch pair_block_stats (the default engine "
           "was not the card's)")
     check(launches[2] == -(-N_EVAL_FILES // PROJ_BLK),
@@ -1272,7 +1302,7 @@ def eval_pca_path(device, work: str, rotation: np.ndarray, card: str) -> tuple:
           f"{rows / n_pairs:.4f} of {n_pairs} pairs, the same pairs and order as --engine exact "
           f"({exact_sec:.1f} s) with every non-score column byte-identical, {differ} score "
           f"strings differ; pair_block_stats launches {launches[:2]} (tiles, sparse), the "
-          f"projection's quantize {launches[2]}; {sec:.2f} s "
+          f"projection's quantize {launches[2]}, pca_radius {launches[3]}; {sec:.2f} s "
           f"end to end (CLI "
           f"incl. load and projection), {rows / sec:.0f} candidate pairs/s [{card}]", flush=True)
     return launches
@@ -1284,7 +1314,7 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple
     its candidate list and returns check_pair_block_list's numbers."""
     import torch
 
-    from ntsm_tpu_torch.eval import pair_kernel, project_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, pca, project_kernel
     from ntsm_tpu_torch.eval import exact
     from ntsm_tpu_torch.eval.driver import run_eval
     from ntsm_tpu_torch.eval.pca import (
@@ -1303,13 +1333,16 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple
     tiers = radius_tiers(data, opts)
     sink = ByteSink()
     reset_launches()
+    within = pca.counters["within_radius"]
     t0 = time.monotonic()
     with contextlib.redirect_stderr(io.StringIO()):
         tm = run_eval(data, opts, sink, device=device)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse,
-                project_kernel.launches_project)
+                project_kernel.launches_project,
+                radius_launches(n, pca.counters["within_radius"] - within,
+                                f"phase 11 N={n} -p"))
     check(sum(launches[:2]) > 0 and pair_kernel.launches == 0,
           f"N={n} -p: pair_block_stats launches {launches[:2]}, pair_stats {pair_kernel.launches}")
     check(launches[2] == tm["project_blocks"] == -(-n // 128),
@@ -1353,7 +1386,8 @@ def eval_pca_cohort(device, rotation: np.ndarray, work: str, card: str) -> tuple
           f"candidates {tm['candidates']:.2f} s, upload + s_single {tm['upload']:.2f} s, tiles "
           f"(the plans) {tm['tiles']:.3f} s, kernel + fetch {tm['score']:.3f} s, finalize "
           f"{tm['finalize']:.2f} s, emit {tm['emit']:.2f} s; pair_block_stats launches "
-          f"{launches[:2]} (tiles, sparse); the cloud = project_pcs's bit for bit; first {k} "
+          f"{launches[:2]} (tiles, sparse), pca_radius {launches[3]}; the cloud = "
+          f"project_pcs's bit for bit; first {k} "
           f"rows match the exact engine ({differ} score "
           f"strings differ) [{card}]", flush=True)
     del sink, data, sub
@@ -1474,6 +1508,86 @@ def check_score_select(device, card: str) -> dict:
                 library_ms=None, bound_ms=out["s05"]["bound_ms"],
                 bound_by=out["s05"]["bound_by"], kept=out["s05"]["kept"],
                 all_ms=out["all"]["ms"], all_bound_ms=out["all"]["bound_ms"])
+
+
+def check_pca_radius(device, card: str) -> dict:
+    """Phase 23, the -p candidate search's radius kernel
+    (csrc/pca_radius.cu) alone at N = 32,768 (the biobank cell's size):
+    a 20-dimensional cloud of 160 clusters, 2% of the rows exhaustive, the
+    rest at squared radius 4 or 225.  The matches of 1,024 rows against
+    the host's distances (eval/pca.py:sq_dists_blocked's arithmetic, bit
+    for bit), the whole list against the host's pca_candidate_arrays on
+    the first 4,096 samples, then each pass timed alone beside two
+    bounds: the least work of any search (the cloud read once, 3 dim f64
+    operations and 12 bytes written a pair inside a radius) and a
+    brute-force search's f64 work (3 dim operations each of N^2 pairs)."""
+    import torch
+
+    from ntsm_tpu_torch import csrc
+    from ntsm_tpu_torch.eval import pca, search_kernel
+
+    rng = np.random.default_rng(20261019)
+    N, dim = 32768, N_PCS
+    centers = rng.normal(0, 4.0, size=(160, dim))
+    cloud = centers[np.arange(N) % 160] + rng.normal(0, 0.22, size=(N, dim))
+    radii = np.where(rng.random(N) < 0.9, 4.0, 225.0)
+    radii[rng.random(N) < 0.02] = pca.DBL_MAX
+    c_d, r_d = torch.from_numpy(cloud).to(device), torch.from_numpy(radii).to(device)
+    i, j, d = (x.cpu().numpy() for x in search_kernel.radius_matches(c_d, r_d, 0, 1024))
+    sq = ((cloud[:1024, None, :] - cloud[None, :, :]) ** 2).sum(axis=2)
+    hit = (sq < radii[:1024, None]) & (radii[:1024, None] < pca.DBL_MAX)
+    hit[np.arange(1024), np.arange(1024)] = False
+    wi, wj = np.nonzero(hit)
+    check(np.array_equal(i, wi) and np.array_equal(j, wj)
+          and np.array_equal(d.view(np.int64), sq[wi, wj].view(np.int64)),
+          "pca_radius: the matches of rows [0, 1024) are not the host's")
+    sub = cloud[:4096]
+    hi, hj = pca.pca_candidate_arrays(sub, radii[:4096], dim)
+    _, _, gi, gj = search_kernel.candidate_search(c_d[:4096].contiguous(), r_d[:4096].contiguous())
+    check(np.array_equal(gi, hi) and np.array_equal(gj, hj),
+          "pca_radius: the list of the first 4,096 samples is not pca_candidate_arrays'")
+    lib = csrc.load()
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    chunks = search_kernel.n_chunks(N, N, torch.cuda.get_device_properties(device)
+                                    .multi_processor_count)
+    counts = torch.empty((N, chunks), dtype=torch.int32, device=device)
+    stream = csrc.stream_ptr(device)
+    c_t = c_d.t().contiguous()
+
+    def count_pass():
+        csrc.check(lib, lib.ntsm_pca_radius(ptr(c_t), ptr(r_d), N, dim, 0, N, chunks, ptr(counts),
+                                            None, None, None, None, stream), "pca_radius")
+
+    count_pass()
+    ends = torch.cumsum(counts.view(-1), 0, dtype=torch.int64)
+    within = int(ends[-1])
+    starts = ends - counts.view(-1)
+    out_i = torch.empty(within, dtype=torch.int32, device=device)
+    out_j = torch.empty(within, dtype=torch.int32, device=device)
+    out_d = torch.empty(within, dtype=torch.float64, device=device)
+
+    def write_pass():
+        csrc.check(lib, lib.ntsm_pca_radius(ptr(c_t), ptr(r_d), N, dim, 0, N, chunks, ptr(counts),
+                                            ptr(starts), ptr(out_i), ptr(out_j), ptr(out_d),
+                                            stream), "pca_radius")
+
+    count_ms, write_ms = (device_ms(f, iters=10) for f in (count_pass, write_pass))
+    search_ms = event_ms(lambda: search_kernel.candidate_search(c_d, r_d), iters=5)
+    ii = search_kernel.candidate_search(c_d, r_d)[2]
+    least = bound(N * (dim + 1) * 8.0 + within * 12, within * 3.0 * dim, F64_OPS_PER_S)
+    brute = bound(N * (dim + 1) * 8.0, N * float(N) * 3 * dim, F64_OPS_PER_S)
+    ms = count_ms + write_ms
+    print(f"phase 23: pca_radius alone at N={N}, dim {dim}, {chunks} column chunks: the "
+          f"matches of 1,024 rows and the list of 4,096 samples = the host's; {within} pairs "
+          f"inside a finite radius, {ii.size} candidates; count pass {count_ms:.3f} ms, write "
+          f"pass {write_ms:.3f} ms, the whole search {search_ms:.2f} ms; least work "
+          f"{least['bound_ms']:.4f} ms ({least['bound_by']}: "
+          f"{100 * least['bound_ms'] / ms:.2f}% of the two passes), brute-force f64 work "
+          f"{brute['bound_ms']:.3f} ms a pass [{card}]", flush=True)
+    return dict(max_abs_err=0.0, n=N, within=within, candidates=int(ii.size), ms=ms,
+                count_ms=count_ms, write_ms=write_ms, search_ms=search_ms, library_ms=None,
+                bound_ms=least["bound_ms"], bound_by=least["bound_by"],
+                brute_ms=brute["bound_ms"])
 
 
 # ---------------------------------------------------------------- phases 12-13
@@ -1816,7 +1930,7 @@ def panel_path(work: str, card: str) -> dict:
     seconds."""
     import torch
 
-    from ntsm_tpu_torch.eval import pair_kernel
+    from ntsm_tpu_torch.eval import pair_kernel, pca
     from ntsm_tpu_torch.io.sites import load_site_table
     from ntsm_tpu_torch.sitegen.pipeline import read_matrix
 
@@ -1903,12 +2017,15 @@ def panel_path(work: str, card: str) -> dict:
           "vcf --output-counts did not write one count file a sample")
     args = ["-a", "-p", at("panel2_rotationalMatrix.tsv"), "-n", at("panel_center.txt"), *paths]
     reset_launches()
+    within = pca.counters["within_radius"]
     t0 = time.monotonic()
     got = cli_eval(args)
     torch.cuda.synchronize()
     secs["eval -p"] = time.monotonic() - t0
-    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse)
-    check(sum(launches) > 0 and pair_kernel.launches == 0,
+    launches = (pair_kernel.launches_block, pair_kernel.launches_block_sparse,
+                radius_launches(len(paths), pca.counters["within_radius"] - within,
+                                "phase 17c eval -p"))
+    check(sum(launches[:2]) > 0 and pair_kernel.launches == 0,
           f"eval -p launched pair_block_stats {launches} and pair_stats {pair_kernel.launches}")
     t0 = time.monotonic()
     want = cli_eval(["--engine", "exact", *args])
@@ -1923,9 +2040,9 @@ def panel_path(work: str, card: str) -> dict:
           f"({secs['vcf --output-counts']:.2f} s, host); eval -a -p on the card: {len(rows)} "
           f"candidate rows of {n_pairs} pairs, the same pairs and order as --engine exact with "
           f"every non-score column byte-identical, {differ} score strings differ; the "
-          f"{PANEL_COPIES} copy pairs called the same; pair_block_stats launches {launches} "
-          f"(tiles, sparse); {secs['eval -p']:.2f} s (exact {secs['eval -p --engine exact']:.2f} "
-          f"s) [{card}]", flush=True)
+          f"{PANEL_COPIES} copy pairs called the same; pair_block_stats launches {launches[:2]} "
+          f"(tiles, sparse), pca_radius {launches[2]}; {secs['eval -p']:.2f} s (exact "
+          f"{secs['eval -p --engine exact']:.2f} s) [{card}]", flush=True)
 
     # 17d: the vcf fixtures, whatever this host's long double is
     t0 = time.monotonic()
@@ -2456,7 +2573,7 @@ def main() -> int:
 
 
 def run_phases(card: str) -> list:
-    """Phases 1-22; returns the kernels line's rows and the summary of the
+    """Phases 1-23; returns the kernels line's rows and the summary of the
     checks that passed."""
     import torch
 
@@ -2506,7 +2623,8 @@ def run_phases(card: str) -> list:
         project = check_project_quantize(device, card)
         # the -p path's launches: phase 10's CLI run and phase 11's scorer run
         (launches["pair_block_stats"], launches["pair_block_stats_sparse"],
-         launches["project_quantize"]) = (x + y for x, y in zip(in_cli, in_scorer))
+         launches["project_quantize"], launches["pca_radius"]) = (
+            x + y for x, y in zip(in_cli, in_scorer))
         for key, val in alone["tiles"].items():
             if key in ("ms", "list_ms", "plan_ms", "density", "tile_density", "tiles",
                        "sparse_pairs"):
@@ -2531,6 +2649,7 @@ def run_phases(card: str) -> list:
         launches["pair_stats"] += api_run["pair_stats"]
         launches["pair_block_stats"] += panel["launches"][0]
         launches["pair_block_stats_sparse"] += panel["launches"][1]
+        launches["pca_radius"] += panel["launches"][2]
         t0 = time.monotonic()
         (launches["count_step_v2"], launches["count_step_v2_order"]), step_v2, order_v2 = v2_path(
             device, sites, fq, golden_text, card)
@@ -2539,6 +2658,7 @@ def run_phases(card: str) -> list:
                          work, card)
         print(f"phases 19-21: {time.monotonic() - t0:.1f} s in all", flush=True)
         select = check_score_select(device, card)
+        radius = check_pca_radius(device, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2575,6 +2695,10 @@ def run_phases(card: str) -> list:
              source="ntsm_tpu_torch/csrc/score_select.cu",
              replaces="none: the JAX engine applies -s on the host",
              launches=launches["score_select"], **select),
+        dict(name="pca_radius", route="cuda",
+             source="ntsm_tpu_torch/csrc/pca_radius.cu",
+             replaces="none: the JAX package searches on the host",
+             launches=launches["pca_radius"], **radius),
         dict(name="window_hash_codes", route="cuda",
              source="ntsm_tpu_torch/csrc/window_hash.cu",
              replaces="ntsm_tpu/count/pallas_kernel.py:148",
@@ -2612,7 +2736,8 @@ def run_phases(card: str) -> list:
                "to its plain version; 20 count --trace = golden, "
                "with the stage spans and the fused step's kernel events; 21 count and eval -a "
                "--distributed on 2 ranks = one process; 7, 22 the default eval's score selection "
-               "keeps the plain version's pairs, the rows = the exact engine's")
+               "keeps the plain version's pairs, the rows = the exact engine's; 23 the -p search's "
+               "radius kernel = the host's matches and list")
     return kernels, summary
 
 

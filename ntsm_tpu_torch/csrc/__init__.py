@@ -12,6 +12,7 @@ stage) the v2 engine calls,
 ``count.kernel_v3``, whose fused count step the v3 engine calls,
 ``eval.pair_kernel`` (the pair kernels and the default eval's score
 selection), ``eval.project_kernel`` (the ``-p`` projection's quantize),
+``eval.search_kernel`` (the ``-p`` candidate search's radius pass),
 ``experiments.gather``, ``experiments.exp_dma_probe`` and
 ``experiments.exp_count_kernels``) raise on a non-zero code.
 Nothing is compiled when this module is imported, so the CPU tests import
@@ -144,6 +145,8 @@ def load():
         lib.ntsm_score_select.restype = I
         lib.ntsm_score_select.argtypes = [P, P, L, P, L, L, ctypes.c_double, ctypes.c_double,
                                           P, P, P, P]
+        lib.ntsm_pca_radius.restype = I
+        lib.ntsm_pca_radius.argtypes = [P, P, L, I, L, L, I, P, P, P, P, P, P]
         lib.ntsm_project_quantize.restype = I
         lib.ntsm_project_quantize.argtypes = [P, P, L, L, L, P, ctypes.c_double, P, P]
         lib.ntsm_gather_1d.restype = I

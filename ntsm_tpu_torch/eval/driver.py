@@ -160,7 +160,7 @@ def _pca_device(data: CountData, opts: Options, out, device, rec) -> dict:
     from ntsm_tpu_torch.eval.rect import compute_score_pca_cuda, device_planes
 
     with rec.stage("upload"):
-        planes = device_planes(data, device)
+        planes = device_planes(data, device, rec=rec)
         if planes[0].is_cuda:
             torch.cuda.synchronize(planes[0].device)
     with rec.stage("project"):

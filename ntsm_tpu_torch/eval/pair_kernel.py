@@ -87,19 +87,20 @@ def n_block_pairs(n_samples: int, r0: int, r1: int) -> int:
     return (r1 - r0) * (n_samples - 1) - (r1 * (r1 - 1) - r0 * (r0 - 1)) // 2
 
 
-def s_single_plane(a: torch.Tensor, b: torch.Tensor, mc: int) -> torch.Tensor:
+def s_single_plane(a: torch.Tensor, b: torch.Tensor, mc: int, out=None) -> torch.Tensor:
     """[N, L] f64 per-site single-sample terms (computeSumLogPSingle,
     src/CompareCounts.hpp:968-991) on the planes' device, with the
     arithmetic of eval/model.py:CountData.s_single (a*fa + b*fb, each
-    step its own rounding).  Zero counts give 0, so pad columns add
-    nothing."""
+    step its own rounding), into `out` where given (an [N, L] f64 view,
+    e.g. a row block of the whole plane).  Zero counts give 0, so pad
+    columns add nothing."""
     af = a.double()
     bf = b.double()
     den = torch.clamp(af + bf, min=1.0)
     zero = torch.zeros((), dtype=torch.float64, device=a.device)
     fa = torch.where(a > mc, af / den, zero)
     fb = torch.where(b > mc, bf / den, zero)
-    return af * fa + bf * fb
+    return torch.add(af * fa, bf * fb, out=out)
 
 
 def _site_sums(ai, bi, si, aj, bj, sj, mc: int):

@@ -15,7 +15,9 @@ Candidate search (computeScorePCA, :285-528): the reference builds a
 nanoflann kd-tree and does per-sample radius queries with asymmetric
 pruning rules.  Here the equivalent is the dense pairwise distance matrix
 with the same radius tiers and pruning applied as masks.  The candidate SET
-and its order are the reference's; only the search algorithm differs.
+and its order are the reference's; only the search algorithm differs.  The
+device engine searches on the card instead, in blocks of rows with the same
+distance arithmetic (eval/search_kernel.py): the same list.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ from ntsm_tpu_torch.options import Options
 from ntsm_tpu_torch.utils import spans
 
 DBL_MAX = np.finfo(np.float64).max
+# the candidate search, summed over calls (this module's pca_candidate_arrays
+# and the device engine's eval/search_kernel.py): rows searched with a finite
+# radius, their matches (pairs i != j inside r_i, before the pruning rules),
+# pairs listed by the exhaustive rows, pairs listed in all
+counters = {"search_rows": 0, "within_radius": 0, "exhaustive": 0, "candidates": 0}
 
 
 _ARTIFACT_CACHE: dict = {}
@@ -349,10 +356,12 @@ def pca_candidate_arrays(cloud: np.ndarray, radii: np.ndarray, dim: int,
     exhaust = radii >= DBL_MAX
     parts_i: list = []
     parts_k: list = []
+    within = listed_ex = 0
     for i in range(n):
         ri = radii[i]
         if ri < DBL_MAX:
             match = np.nonzero(sq[i] < ri)[0]
+            within += int(match.size) - int(sq[i, i] < ri)
             order = match[np.argsort(sq[i][match], kind="stable")]
             rk = radii[order]
             keep = np.where(rk == ri, order > i, rk < ri)
@@ -361,9 +370,14 @@ def pca_candidate_arrays(cloud: np.ndarray, radii: np.ndarray, dim: int,
             # exhaustive searchers share one match list shape: every j
             # except exhaustive j <= i (k order = index order)
             ks = idx[~(exhaust & (idx <= i)) & (idx != i)]
+            listed_ex += int(ks.size)
         if ks.size:
             parts_i.append(np.full(ks.size, i, dtype=np.int64))
             parts_k.append(ks.astype(np.int64))
+    counters["search_rows"] += int((radii < DBL_MAX).sum())
+    counters["within_radius"] += within
+    counters["exhaustive"] += listed_ex
+    counters["candidates"] += sum(int(p.size) for p in parts_i)
     if not parts_i:
         return np.empty(0, np.int64), np.empty(0, np.int64)
     return np.concatenate(parts_i), np.concatenate(parts_k)

@@ -2,8 +2,10 @@
 ntsm_tpu/eval/rect.py and eval/tpu.py:compute_score_all_tpu,
 compute_score_pca_tpu).
 
-The [N, L] int32 allele count planes go to the device once, with the f64
-s_single plane computed there.  All-vs-all scores the i<j triangle in row
+The [N, L] int32 allele count planes go to the device once, a block of
+UPLOAD_ROWS samples at a time, with the f64 s_single plane computed there
+block by block (device_planes), so that no transient the size of the
+cohort exists on the device.  All-vs-all scores the i<j triangle in row
 blocks with the pair-statistics kernel; -p scores the candidate list in
 slices with the candidate-pair kernel (both in eval/pair_kernel.py).  Each
 block's per-pair (ints, joint, ss) is fetched, finalized on the host in f64
@@ -23,45 +25,68 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ntsm_tpu_torch.eval import pair_kernel
+from ntsm_tpu_torch.eval import pair_kernel, search_kernel
 from ntsm_tpu_torch.eval.emit import _emit_prepared, _load_row_formatter, _pair_columns, _sample_strings
 from ntsm_tpu_torch.eval.exact import DBL_MAX, HEADER
 from ntsm_tpu_torch.eval.model import CountData
-from ntsm_tpu_torch.eval.pca import pair_dist_sq, pca_candidate_arrays, search_radii
+from ntsm_tpu_torch.eval.pca import pair_dist_sq, search_radii
 from ntsm_tpu_torch.options import Options
 from ntsm_tpu_torch.parallel.distributed import rank, world_size
 from ntsm_tpu_torch.utils import spans
 
 SITE_ALIGN = 32  # plane rows padded to 128 bytes; pad sites never count
 BLOCK_PAIRS = 1 << 21  # pairs per row block or -p slice: bounds the fetched block
-# The stages of the device engine (utils/spans.py, area "eval"): samples is
-# the per-sample columns of the rows, formatted once; score is launch (the
-# kernels' enqueue) plus fetch (the block's .cpu(), which waits for the
-# kernels and the copy; without -a the kept count, then the kept records);
-# -p adds candidates (radii plus search) and tiles (the host plan of each
-# slice).
-ALL_STAGES = ("upload", "samples", "score", "launch", "fetch", "finalize", "emit")
-PCA_STAGES = ("candidates", "candidates.radii", "candidates.search", "upload", "samples",
-              "tiles", "score", "launch", "fetch", "finalize", "emit")
+# samples a block of device_planes: ~0.4 GB of counts and ~2 GB of f64
+# temporaries at the human site count, whatever N
+UPLOAD_ROWS = 512
+# The stages of the device engine (utils/spans.py, area "eval"): upload is
+# the planes' (upload.copy: the host-to-device copies of the count blocks);
+# samples is the per-sample columns of the rows, formatted once; score is
+# launch (the kernels' enqueue) plus fetch (the block's .cpu(), which waits
+# for the kernels and the copy; without -a the kept count, then the kept
+# records); -p adds candidates (radii plus search: search.radius, the
+# radius kernel's passes and the compaction of each row's matches, and
+# search.order, their prune and order, the exhaustive rows and the fetch of
+# the list; eval/search_kernel.py) and tiles (the host plan of each slice).
+ALL_STAGES = ("upload", "upload.copy", "samples", "score", "launch", "fetch", "finalize", "emit")
+PCA_STAGES = ("candidates", "candidates.radii", "candidates.search", "candidates.search.radius",
+              "candidates.search.order", "upload", "upload.copy", "samples", "tiles", "score",
+              "launch", "fetch", "finalize", "emit")
+# the host-to-device copies of device_planes: their bytes and blocks
+counters = {"upload_bytes": 0, "upload_chunks": 0}
 
 
-def device_planes(data: CountData, device) -> tuple:
+def device_planes(data: CountData, device, rows: int = UPLOAD_ROWS, rec=None) -> tuple:
     """(a, b, s) on `device`: [N, Lp] int32 count planes, zero-padded to
-    SITE_ALIGN sites, and their f64 s_single plane."""
+    SITE_ALIGN sites, and their f64 s_single plane.
+
+    The three are allocated once and filled a block of `rows` samples at a
+    time: the block's [m, L, 2] counts are copied to the device (stage
+    upload.copy of `rec`, else of the current recorder), split into a and
+    b, and the block's s computed, so only one block's transients live at
+    a time.  The values are the same at any block size."""
     mc = data.max_counts
-    if mc.dtype != np.int32:
-        if mc.size and (mc.min() < 0 or mc.max() > np.iinfo(np.int32).max):
-            raise ValueError("count outside int32: the device engine cannot hold it")
-        mc = mc.astype(np.int32)
+    if mc.dtype != np.int32 and mc.size and (mc.min() < 0
+                                             or mc.max() > np.iinfo(np.int32).max):
+        raise ValueError("count outside int32: the device engine cannot hold it")
+    stage = spans.stage if rec is None else rec.stage
     N, L = mc.shape[0], mc.shape[1]
     Lp = L + (-L) % SITE_ALIGN
-    both = torch.from_numpy(np.ascontiguousarray(mc)).to(device)  # [N, L, 2]
     a = torch.zeros((N, Lp), dtype=torch.int32, device=device)
     b = torch.zeros((N, Lp), dtype=torch.int32, device=device)
-    a[:, :L] = both[:, :, 0]
-    b[:, :L] = both[:, :, 1]
-    del both
-    s = pair_kernel.s_single_plane(a, b, data._min_cov)
+    s = torch.empty((N, Lp), dtype=torch.float64, device=device)
+    step = max(1, rows)
+    for r0 in range(0, N, step):
+        r1 = min(r0 + step, N)
+        host = torch.from_numpy(np.ascontiguousarray(mc[r0:r1], dtype=np.int32))
+        with stage("upload.copy"):
+            both = host.to(device)  # [m, L, 2]
+        counters["upload_bytes"] += host.numel() * host.element_size()
+        counters["upload_chunks"] += 1
+        a[r0:r1, :L] = both[:, :, 0]
+        b[r0:r1, :L] = both[:, :, 1]
+        del both
+        pair_kernel.s_single_plane(a[r0:r1], b[r0:r1], data._min_cov, out=s[r0:r1])
     return a, b, s
 
 
@@ -156,7 +181,7 @@ def compute_score_all_cuda(data: CountData, opts: Options, out, device) -> dict:
         return rec.times(blocks=blocks, kept=kept)
     select = not opts.all and world == 1
     with rec.stage("upload"):
-        a, b, s = device_planes(data, device)
+        a, b, s = device_planes(data, device, rec=rec)
         if select:
             cov = torch.from_numpy(np.ascontiguousarray(data.cov, dtype=np.float64)).to(a.device)
             thr_hi = pair_kernel.select_threshold(opts.score_thresh)
@@ -221,7 +246,9 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
                            device, planes: tuple | None = None) -> dict:
     """PCA-filtered comparison (computeScorePCA, CompareCounts.hpp:285-391)
     on the device engine: the candidate pairs and their order are the exact
-    engine's (eval/driver.py:compute_score_pca), scored on `device` in
+    engine's (eval/driver.py:compute_score_pca), searched on `device`
+    (eval/search_kernel.py: the list stays there for the kernels, and one
+    host copy serves the plans, finalize and emit) and scored there in
     slices of at most BLOCK_PAIRS, each planned on the host from the host
     list (pair_kernel.plan_pair_blocks).  Returns the seconds spent in each
     stage (PCA_STAGES: candidates, upload, samples, tiles = the plans,
@@ -237,14 +264,15 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
         out.write(HEADER)
         out.write("\n")
         with rec.stage("candidates.search"):
-            ii_all, jj_all = pca_candidate_arrays(cloud, radii, opts.dim)
+            cloud_d = torch.from_numpy(np.ascontiguousarray(cloud[:, : opts.dim])).to(device)
+            radii_d = torch.from_numpy(radii).to(device)
+            ii_d, jj_d, ii_all, jj_all = search_kernel.candidate_search(cloud_d, radii_d,
+                                                                        stage=rec.stage)
     P = int(ii_all.shape[0])
     if not P:
         return rec.times(pairs=P)
     with rec.stage("upload"):
-        a, b, s = device_planes(data, device) if planes is None else planes
-        ii_d = torch.from_numpy(ii_all.astype(np.int32)).to(device)
-        jj_d = torch.from_numpy(jj_all.astype(np.int32)).to(device)
+        a, b, s = device_planes(data, device, rec=rec) if planes is None else planes
         if a.is_cuda:
             torch.cuda.synchronize(a.device)
     with rec.stage("samples"):

@@ -185,6 +185,13 @@ result; any failure raises and ends the run with a non-zero exit:
      least work of any search and a brute-force search's f64 work
      (``chip_smoke.check_pca_radius``, callable alone); its launches stay
      out of the kernels line, which counts those of phases 10, 11 and 17c
+ 24. the count planes' upload, a host path: one upload of the N = 3202
+     cohort's planes (2.47 GB of int32 counts) through the pageable copy
+     a 512-row block that the staging ring replaced and through
+     ``eval/rect.py:device_planes``' pinned ring, alternating, three times
+     each: the planes equal, each way's seconds and GB/s over its
+     upload.copy spans, the ring's upload.copy.fill share and torch's
+     intra-op threads (``chip_smoke.check_upload_ring``, callable alone)
   then, passed or failed, every process the run started that is still
      there is stopped and reaped (the resource tracker of the spawn pools
      of phases 6 and 10, and anything a child left behind: this process is
@@ -1590,6 +1597,91 @@ def check_pca_radius(device, card: str) -> dict:
                 brute_ms=brute["bound_ms"])
 
 
+# ---------------------------------------------------------------- phase 24
+
+
+def pageable_planes(data, device, rec) -> tuple:
+    """device_planes' planes through the upload the staging ring replaced:
+    each 512-row block's [m, L, 2] counts copied from pageable memory with
+    one .to(device) (stage upload.copy of `rec`), then split and its s
+    computed."""
+    import torch
+
+    from ntsm_tpu_torch.eval import pair_kernel, rect
+
+    mc = data.max_counts
+    N, L = mc.shape[:2]
+    Lp = L + (-L) % rect.SITE_ALIGN
+    a = torch.zeros((N, Lp), dtype=torch.int32, device=device)
+    b = torch.zeros((N, Lp), dtype=torch.int32, device=device)
+    s = torch.empty((N, Lp), dtype=torch.float64, device=device)
+    for r0 in range(0, N, rect.UPLOAD_ROWS):
+        r1 = min(r0 + rect.UPLOAD_ROWS, N)
+        host = torch.from_numpy(np.ascontiguousarray(mc[r0:r1], dtype=np.int32))
+        with rec.stage("upload.copy"):
+            both = host.to(device)
+        a[r0:r1, :L] = both[:, :, 0]
+        b[r0:r1, :L] = both[:, :, 1]
+        del both
+        pair_kernel.s_single_plane(a[r0:r1], b[r0:r1], data._min_cov, out=s[r0:r1])
+    return a, b, s
+
+
+def check_upload_ring(device, card: str) -> dict:
+    """Phase 24: one upload of the N = 3202 cohort's planes through the
+    pageable copy a block (pageable_planes) and through device_planes'
+    pinned staging ring, alternating (P R R P P R) after one warm-up of
+    each: the planes equal bit for bit, each way's seconds (to a
+    synchronise) and GB/s over its upload.copy spans, the ring's
+    upload.copy.fill share and fill rate, and torch's intra-op threads,
+    which run the fill.  Host clock: a host path, not a kernel."""
+    import torch
+
+    from ntsm_tpu_torch.eval import rect
+    from ntsm_tpu_torch.options import Options
+    from ntsm_tpu_torch.utils import spans
+
+    t0 = time.monotonic()
+    data = cohort_data(make_cohort(device, 20261025, N_COHORT), Options(engine="cuda"))
+    make_s = time.monotonic() - t0
+    n_bytes = data.max_counts.size * 4
+    ways = {"pageable": lambda rec: pageable_planes(data, device, rec),
+            "ring": lambda rec: rect.device_planes(data, device, rec=rec)}
+    want = [x.cpu() for x in ways["pageable"](spans.Recorder("eval"))]
+    staged = rect.counters["upload_staged_bytes"]
+    got = [x.cpu() for x in ways["ring"](spans.Recorder("eval"))]
+    check(rect.counters["upload_staged_bytes"] - staged == n_bytes,
+          "upload ring: not every byte went through a pinned slot")
+    check(all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want)),
+          "upload ring: the planes differ from the pageable upload's")
+    del want, got
+    runs = {w: [] for w in ways}
+    for w in ("pageable", "ring", "ring", "pageable", "pageable", "ring"):
+        rec = spans.Recorder("eval")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes = ways[w](rec)
+        torch.cuda.synchronize()
+        runs[w].append(dict(s=time.perf_counter() - t0, copy=rec.budget["upload.copy"],
+                            fill=rec.budget.get("upload.copy.fill", 0.0)))
+        del planes
+    res = {w: dict(s=[r["s"] for r in rs], gb_s=[n_bytes / r["copy"] / 1e9 for r in rs],
+                   fill_share=[r["fill"] / r["copy"] for r in rs],
+                   fill_gb_s=[n_bytes / r["fill"] / 1e9 if r["fill"] else None for r in rs])
+           for w, rs in runs.items()}
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+    print(f"phase 24: the upload of the N={data.n_samples} planes ({n_bytes / 1e9:.2f} GB of int32 "
+          f"counts; cohort made in {make_s:.1f} s), the planes equal bit for bit: pageable "
+          f"{fmt(res['pageable']['s'])} s ({fmt(res['pageable']['gb_s'])} GB/s over "
+          f"upload.copy); ring ({rect.RING_SLOTS} x {rect.SLOT_BYTES >> 20} MB pinned slots) "
+          f"{fmt(res['ring']['s'])} s ({fmt(res['ring']['gb_s'])} GB/s; fill "
+          f"{fmt([100 * x for x in res['ring']['fill_share']])}% of upload.copy, "
+          f"{fmt(res['ring']['fill_gb_s'])} GB/s); torch intra-op threads "
+          f"{torch.get_num_threads()}, host CPUs {len(os.sched_getaffinity(0))} [{card}]",
+          flush=True)
+    return dict(threads=torch.get_num_threads(), **res)
+
+
 # ---------------------------------------------------------------- phases 12-13
 
 
@@ -2573,7 +2665,7 @@ def main() -> int:
 
 
 def run_phases(card: str) -> list:
-    """Phases 1-23; returns the kernels line's rows and the summary of the
+    """Phases 1-24; returns the kernels line's rows and the summary of the
     checks that passed."""
     import torch
 
@@ -2659,6 +2751,7 @@ def run_phases(card: str) -> list:
         print(f"phases 19-21: {time.monotonic() - t0:.1f} s in all", flush=True)
         select = check_score_select(device, card)
         radius = check_pca_radius(device, card)
+        check_upload_ring(device, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2737,7 +2830,8 @@ def run_phases(card: str) -> list:
                "with the stage spans and the fused step's kernel events; 21 count and eval -a "
                "--distributed on 2 ranks = one process; 7, 22 the default eval's score selection "
                "keeps the plain version's pairs, the rows = the exact engine's; 23 the -p search's "
-               "radius kernel = the host's matches and list")
+               "radius kernel = the host's matches and list; 24 the count planes through the pinned "
+               "ring = the pageable upload's")
     return kernels, summary
 
 

@@ -5,8 +5,11 @@ compute_score_pca_tpu).
 The [N, L] int32 allele count planes go to the device once, a block of
 UPLOAD_ROWS samples at a time, with the f64 s_single plane computed there
 block by block (device_planes), so that no transient the size of the
-cohort exists on the device.  All-vs-all scores the i<j triangle in row
-blocks with the pair-statistics kernel; -p scores the candidate list in
+cohort exists on the device.  On a card each block goes through a small
+ring of pinned host slots: the host fills one slot (a parallel copy on
+torch's intra-op threads) while the copy engine drains the one before.
+All-vs-all scores the i<j triangle in row blocks with the pair-statistics
+kernel; -p scores the candidate list in
 slices with the candidate-pair kernel (both in eval/pair_kernel.py).  Each
 block's per-pair (ints, joint, ss) is fetched, finalized on the host in f64
 with the exact engine's transform and emitted.  Without -a, where only the
@@ -39,32 +42,80 @@ BLOCK_PAIRS = 1 << 21  # pairs per row block or -p slice: bounds the fetched blo
 # samples a block of device_planes: ~0.4 GB of counts and ~2 GB of f64
 # temporaries at the human site count, whatever N
 UPLOAD_ROWS = 512
+# device_planes' staging ring: RING_SLOTS host slots of SLOT_BYTES, pinned
+# on a card and kept for the process (128 MB whatever N); a block's flat
+# counts go through them in slot-sized pieces
+RING_SLOTS = 4
+SLOT_BYTES = 32 << 20
 # The stages of the device engine (utils/spans.py, area "eval"): upload is
-# the planes' (upload.copy: the host-to-device copies of the count blocks);
-# samples is the per-sample columns of the rows, formatted once; score is
+# the planes' (upload.copy: the host-to-device path of each count block,
+# from its first fill to its last copy's end; upload.copy.fill: the host
+# fill of the slots); samples is the per-sample columns of the rows,
+# formatted once; score is
 # launch (the kernels' enqueue) plus fetch (the block's .cpu(), which waits
 # for the kernels and the copy; without -a the kept count, then the kept
 # records); -p adds candidates (radii plus search: search.radius, the
 # radius kernel's passes and the compaction of each row's matches, and
 # search.order, their prune and order, the exhaustive rows and the fetch of
 # the list; eval/search_kernel.py) and tiles (the host plan of each slice).
-ALL_STAGES = ("upload", "upload.copy", "samples", "score", "launch", "fetch", "finalize", "emit")
+ALL_STAGES = ("upload", "upload.copy", "upload.copy.fill", "samples", "score", "launch",
+              "fetch", "finalize", "emit")
 PCA_STAGES = ("candidates", "candidates.radii", "candidates.search", "candidates.search.radius",
-              "candidates.search.order", "upload", "upload.copy", "samples", "tiles", "score",
-              "launch", "fetch", "finalize", "emit")
-# the host-to-device copies of device_planes: their bytes and blocks
-counters = {"upload_bytes": 0, "upload_chunks": 0}
+              "candidates.search.order", "upload", "upload.copy", "upload.copy.fill", "samples",
+              "tiles", "score", "launch", "fetch", "finalize", "emit")
+# device_planes' uploads: the bytes of the int32 count blocks, the blocks,
+# and the bytes that went through pinned slots (all of them on a card, none
+# elsewhere)
+counters = {"upload_bytes": 0, "upload_chunks": 0, "upload_staged_bytes": 0}
+_RINGS = {}  # device -> the process's pinned ring there (staging_ring)
 
 
-def device_planes(data: CountData, device, rows: int = UPLOAD_ROWS, rec=None) -> tuple:
+def staging_ring(device: torch.device, n: int) -> tuple:
+    """(slots, events, stream): RING_SLOTS int32 host slots of n elements.
+    On a card they are pinned, with an event a slot (its last copy) and the
+    copy stream, made at the first call of a process and device and reused
+    by every later one (a new n replaces them); elsewhere plain slots made
+    for the call, and no events or stream."""
+    if device.type != "cuda":
+        return [torch.empty(n, dtype=torch.int32) for _ in range(RING_SLOTS)], None, None
+    ring = _RINGS.get(device)
+    if ring is None or ring[0][0].numel() != n:
+        ring = _RINGS[device] = (
+            [torch.empty(n, dtype=torch.int32, pin_memory=True) for _ in range(RING_SLOTS)],
+            [torch.cuda.Event() for _ in range(RING_SLOTS)], torch.cuda.Stream(device))
+    return ring
+
+
+def _block_counts(mc: np.ndarray, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of the [N, L, 2] counts as one flat tensor over the
+    caller's memory; a copy only where they are not one C-contiguous run
+    of int32 or int64 (the slots' fill narrows int64)."""
+    rows = mc[r0:r1]
+    if not (rows.flags.c_contiguous and rows.dtype in (np.int32, np.int64)):
+        rows = np.ascontiguousarray(rows, dtype=np.int32)
+    return torch.from_numpy(rows).view(-1)
+
+
+def device_planes(data: CountData, device, rows: int = UPLOAD_ROWS, rec=None,
+                  slot_bytes: int = SLOT_BYTES) -> tuple:
     """(a, b, s) on `device`: [N, Lp] int32 count planes, zero-padded to
     SITE_ALIGN sites, and their f64 s_single plane.
 
     The three are allocated once and filled a block of `rows` samples at a
-    time: the block's [m, L, 2] counts are copied to the device (stage
-    upload.copy of `rec`, else of the current recorder), split into a and
-    b, and the block's s computed, so only one block's transients live at
-    a time.  The values are the same at any block size."""
+    time: the block's [m, L, 2] counts reach a landing buffer on the device
+    through the staging ring (staging_ring, slots of `slot_bytes`), and are
+    split into a and b there and the block's s computed, so only one
+    block's transients live at a time.  The block's flat counts are cut
+    into slot-sized pieces (across row boundaries); each piece is copied
+    into the next slot by a parallel host copy (int64 narrowed to int32 in
+    the same copy), after that slot's last copy has drained, then copied
+    on.  On a card that copy is asynchronous on the ring's copy stream, so
+    the host fills slot k + 1 while slot k goes over the link; a block's
+    copies wait on the device for the previous block's split, which the
+    host's fills of the ring's other slots hide.  Stage
+    upload.copy of `rec` (else of the current recorder) runs from a
+    block's first fill to its last copy's end, upload.copy.fill is the
+    fills.  The values are the same at any block and slot size."""
     mc = data.max_counts
     if mc.dtype != np.int32 and mc.size and (mc.min() < 0
                                              or mc.max() > np.iinfo(np.int32).max):
@@ -76,16 +127,45 @@ def device_planes(data: CountData, device, rows: int = UPLOAD_ROWS, rec=None) ->
     b = torch.zeros((N, Lp), dtype=torch.int32, device=device)
     s = torch.empty((N, Lp), dtype=torch.float64, device=device)
     step = max(1, rows)
+    dev = a.device
+    on_card = dev.type == "cuda"
+    per = max(1, slot_bytes // 4)  # int32 counts a slot
+    if not on_card:
+        per = max(1, min(per, min(step, N) * L * 2))
+    slots, drained, copy_stream = staging_ring(dev, per)
+    land = torch.empty(min(step, N) * L * 2, dtype=torch.int32, device=dev)
+    k = 0  # pieces so far; piece k goes through slot k % RING_SLOTS
     for r0 in range(0, N, step):
         r1 = min(r0 + step, N)
-        host = torch.from_numpy(np.ascontiguousarray(mc[r0:r1], dtype=np.int32))
+        src = _block_counts(mc, r0, r1)
+        n = src.numel()
+        dst = land[:n]
         with stage("upload.copy"):
-            both = host.to(device)  # [m, L, 2]
-        counters["upload_bytes"] += host.numel() * host.element_size()
+            if on_card:  # the landing buffer's earlier users: the last block's split
+                copy_stream.wait_stream(torch.cuda.current_stream(dev))
+            for off in range(0, n, per):
+                m, j = min(per, n - off), k % RING_SLOTS
+                k += 1
+                if on_card:
+                    drained[j].synchronize()
+                with stage("upload.copy.fill"):
+                    slots[j][:m].copy_(src[off:off + m])
+                if on_card:
+                    with torch.cuda.stream(copy_stream):
+                        dst[off:off + m].copy_(slots[j][:m], non_blocking=True)
+                    drained[j].record(copy_stream)
+                else:
+                    dst[off:off + m].copy_(slots[j][:m])
+            if on_card:
+                last = drained[(k - 1) % RING_SLOTS]
+                last.synchronize()
+                torch.cuda.current_stream(dev).wait_event(last)
+        counters["upload_bytes"] += n * 4
         counters["upload_chunks"] += 1
+        counters["upload_staged_bytes"] += n * 4 if on_card else 0
+        both = dst.view(r1 - r0, L, 2)
         a[r0:r1, :L] = both[:, :, 0]
         b[r0:r1, :L] = both[:, :, 1]
-        del both
         pair_kernel.s_single_plane(a[r0:r1], b[r0:r1], data._min_cov, out=s[r0:r1])
     return a, b, s
 

@@ -244,6 +244,44 @@ def test_planes_in_row_blocks_are_the_whole_arrays(rows, dtype, mc):
     assert not got[2][:, 70:].any()
 
 
+# (N, rows, slot_bytes, dtype, layout) of the staging ring's cases; a row
+# is L * 2 = 140 counts (560 bytes)
+RING_CASES = {
+    "slot_under_a_row": (13, 5, 100, np.int32, "c"),
+    "slot_divides_nothing": (13, 3, 37 * 4, np.int32, "c"),
+    "more_pieces_than_slots": (13, 4, 60 * 4, np.int32, "c"),
+    "n_under_one_slot": (3, None, rect.SLOT_BYTES, np.int32, "c"),
+    "int64_source": (13, 3, 37 * 4, np.int64, "c"),
+    "non_contiguous_source": (13, 4, 50 * 4, np.int64, "strided"),
+}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_planes_through_the_staging_ring_are_the_whole_arrays(case):
+    N, rows, slot_bytes, dtype, layout = RING_CASES[case]
+    data = cohort_data(np.random.default_rng(len(case)), N, 70, dtype, 1)
+    if layout == "strided":
+        wide = np.zeros((N, 140, 2), dtype)
+        wide[:, ::2] = data.max_counts
+        data.max_counts = wide[:, ::2]
+        assert not data.max_counts.flags.c_contiguous
+    per = slot_bytes // 4
+    assert case != "slot_under_a_row" or per < 140
+    assert case != "slot_divides_nothing" or (140 % per and 3 * 140 % per)
+    assert case != "more_pieces_than_slots" or 4 * 140 // per > rect.RING_SLOTS
+    assert case != "n_under_one_slot" or N * 140 < per
+    before = dict(rect.counters)
+    got = rect.device_planes(data, "cpu", rows=rows or rect.UPLOAD_ROWS, slot_bytes=slot_bytes)
+    for x, y in zip(got, whole_planes(data)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y) if x.dtype == torch.int32 else torch.equal(
+            x.view(torch.int64), y.view(torch.int64))
+    grew = {k: rect.counters[k] - before[k] for k in before}
+    assert grew == {"upload_bytes": N * 70 * 2 * 4,
+                    "upload_chunks": -(-N // (rows or rect.UPLOAD_ROWS)),
+                    "upload_staged_bytes": 0}  # no slot is pinned off the card
+
+
 def test_planes_refuse_counts_past_int32():
     data = cohort_data(np.random.default_rng(2), 4, 40, np.int64)
     data.max_counts[2, 5, 1] = 2**31

@@ -35,7 +35,8 @@ COUNTS = [str(FIX / f"{s}_counts.txt") for s in ("sampleA", "sampleA2", "sampleB
 # PR 16's keys of run_eval's stage dict, which the benchmark's readers take
 ALL_KEYS = {"upload", "score", "finalize", "emit", "blocks"}
 PCA_KEYS = {"project", "candidates", "upload", "tiles", "score", "finalize", "emit", "pairs"}
-EVAL_SPANS = {"upload", "upload.copy", "samples", "score", "launch", "fetch", "finalize", "emit"}
+EVAL_SPANS = {"upload", "upload.copy", "upload.copy.fill", "samples", "score", "launch", "fetch",
+              "finalize", "emit"}
 PCA_SPANS = EVAL_SPANS | {"candidates", "candidates.radii", "candidates.search",
                           "candidates.search.radius", "candidates.search.order", "tiles",
                           "project", "project.copy", "project.quantize", "project.matmul"}
@@ -251,7 +252,8 @@ def test_run_eval_spans_and_stage_keys(pca, tmp_path):
     assert set(times) == want | ({"pairs", "project_blocks"} if pca else {"blocks", "kept"})
     assert set(times) >= (PCA_KEYS if pca else ALL_KEYS)
     # each child span inside its parent; the parents' times hold their children's
-    kids = {"score": ("launch", "fetch"), "upload": ("upload.copy",)}
+    kids = {"score": ("launch", "fetch"), "upload": ("upload.copy",),
+            "upload.copy": ("upload.copy.fill",)}
     if pca:
         kids.update(candidates=("candidates.radii", "candidates.search"),
                     **{"candidates.search": ("candidates.search.radius",

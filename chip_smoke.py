@@ -171,13 +171,15 @@ result; any failure raises and ends the run with a non-zero exit:
      one-process table, with the default row blocks and with blocks of
      4,096 pairs (dealt to both ranks, gathered on rank 0); rank 1 prints
      nothing; wall times beside the one-process ones
- 22. the default eval's score selection (``csrc/score_select.cu``) alone
-     on the first row block of the N = 3202 cohort (2,095,310 pairs) of
-     synthetic statistics, with -s 0.5 keeping a few dozen pairs and with
-     -s inf keeping all: the kept set equal to its plain version's on the
-     card, each record the block's values, the count every pair where all
-     survive; device times beside the byte bound (36 B a pair read, 40 B a
-     kept pair written) and the plain version's
+ 22. the score selection (``csrc/score_select.cu``) alone: its triangle
+     instance (the default eval) on the first row block of the N = 3202
+     cohort (2,095,310 pairs) of synthetic statistics, with -s 0.5 keeping
+     a few dozen pairs and with -s inf keeping all, then its list instance
+     (-p) on a slice of 2^21 candidates of a 32,768-sample cohort, the same
+     two ways: the kept set equal to its plain version's on the card, each
+     record the block's values, the count every pair where all survive;
+     device times beside the byte bound (36 B a pair read, 8 B more of ii
+     and jj from a list, 40 B a kept pair written) and the plain version's
  23. the -p candidate search's radius kernel (``csrc/pca_radius.cu``)
      alone at N = 32,768 in 20 dimensions: the matches of 1,024 rows
      equal to the host's distances bit for bit, the list of 4,096 samples
@@ -1457,64 +1459,100 @@ def check_project_quantize(device, card: str) -> dict:
 
 
 def check_score_select(device, card: str) -> dict:
-    """Phase 22, the default eval's score selection alone on the first row
-    block of the N = 3202 cohort: synthetic statistics whose scores lie at
-    1-3 but for a few dozen pairs under 0.5, and 50 pairs of n == 0;
-    -s 0.5 and -s inf (every pair kept).  The kept set and each record
-    against the plain version on the card; device times beside the byte
-    bound."""
+    """Phase 22, the score selection alone: the triangle instance on the
+    first row block of the N = 3202 cohort and the list instance on a -p
+    slice of 2^21 candidates of an N = 32,768 cohort, each on synthetic
+    statistics whose scores lie at 1-3 but for a few dozen pairs under 0.5,
+    and 50 pairs of n == 0; -s 0.5 and -s inf (every pair kept).  The kept
+    set and each record against the plain version on the card; device
+    times beside the byte bound."""
+    import ctypes
+
     import torch
 
+    from ntsm_tpu_torch import csrc
     from ntsm_tpu_torch.eval import pair_kernel, rect
 
     rng = np.random.default_rng(20261018)
-    N = N_COHORT
-    r0, r1 = next(rect.row_blocks(N, rect.BLOCK_PAIRS))
-    P = pair_kernel.n_block_pairs(N, r0, r1)
-    ints = rng.integers(20_000, 90_000, size=(5, P)).astype(np.int32)
-    ints[0, rng.integers(0, P, 50)] = 0
-    cov = rng.uniform(25, 35, N)
-    target = rng.uniform(1, 3, P)
-    target[rng.integers(0, P, 40)] = rng.uniform(-0.2, 0.5, 40)
-    iu, ju = rect.block_indices(N, r0, r1)
-    ss = rng.uniform(-3e5, -1e5, P)
-    joint = ss - 0.5 * target * ints[0] * (cov[iu] * cov[ju]) ** 0.2
-    idev = torch.from_numpy(ints).to(device)
-    sdev = torch.from_numpy(np.stack([joint, ss])).to(device)
-    cdev = torch.from_numpy(cov).to(device)
+    lib = csrc.load()
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    # the triangle's first row block, then a -p slice (i, j drawn at random)
+    r0, r1 = next(rect.row_blocks(N_COHORT, rect.BLOCK_PAIRS))
+    cases = [("triangle", N_COHORT, rect.block_indices(N_COHORT, r0, r1)), ("list", 32768, None)]
     out = {}
-    for name, thresh in (("s05", 0.5), ("all", float("inf"))):
-        hi = pair_kernel.select_threshold(thresh)
-        ki, kf, cnt = pair_kernel.score_select(idev, sdev, cdev, r0, N, 0.2, hi)
-        pi, pf, pc = pair_kernel.score_select_plain(idev, sdev, cdev, r0, N, 0.2, hi)
-        k = int(cnt[0])
-        rec_i, rec_f = ki[:k].cpu().numpy(), kf[:k].cpu().numpy()
-        order = np.argsort(rec_i[:, 0])
-        p = rec_i[order, 0]
-        check(k == int(pc[0]) and np.array_equal(p, pi[:, 0].cpu().numpy()),
-              f"score_select -s {thresh}: {k} kept, the plain version {int(pc[0])}")
-        check(np.array_equal(rec_i[order, 1:].T, ints[:, p])
-              and np.array_equal(rec_f[order].T, np.stack([joint, ss])[:, p]),
-              f"score_select -s {thresh}: a record is not the block's values")
-        check(k == P if thresh == float("inf") else 20 <= k < 200,
-              f"score_select -s {thresh}: {k} of {P} pairs kept")
-        ms = device_ms(lambda: pair_kernel.score_select(idev, sdev, cdev, r0, N, 0.2, hi))
-        plain_ms = event_ms(lambda: pair_kernel.score_select_plain(idev, sdev, cdev, r0, N, 0.2,
-                                                                   hi))
-        # bytes: each pair's ints and sums read once, each kept record (24 +
-        # 16 B) written once, cov read once; a pair's pow, two divisions and
-        # square root are far from the f64 peak (~60 operations a pair)
-        n_bytes = P * 36 + k * 40 + N * 8
-        bd_ = bound(n_bytes, P * 60, F64_OPS_PER_S)
-        print(f"phase 22: score_select alone, -s {thresh}, the first row block of N={N} "
-              f"({P} pairs): {k} kept, equal to the plain version; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bd_['bound_ms']:.4f} ms ({bd_['bound_by']}, "
-              f"{n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
-        out[name] = dict(kept=k, ms=ms, plain_ms=plain_ms, **bd_)
-    return dict(max_abs_err=0.0, pairs=P, ms=out["s05"]["ms"], plain_ms=out["s05"]["plain_ms"],
-                library_ms=None, bound_ms=out["s05"]["bound_ms"],
-                bound_by=out["s05"]["bound_by"], kept=out["s05"]["kept"],
-                all_ms=out["all"]["ms"], all_bound_ms=out["all"]["bound_ms"])
+    for source, N, pairs in cases:
+        if pairs is None:
+            P = rect.BLOCK_PAIRS
+            ii = rng.integers(0, N, P)
+            pairs = (ii, (ii + rng.integers(1, N, P)) % N)
+        iu, ju = pairs
+        P = iu.size
+        ints = rng.integers(20_000, 90_000, size=(5, P)).astype(np.int32)
+        ints[0, rng.integers(0, P, 50)] = 0
+        cov = rng.uniform(25, 35, N)
+        target = rng.uniform(1, 3, P)
+        target[rng.integers(0, P, 40)] = rng.uniform(-0.2, 0.5, 40)
+        ss = rng.uniform(-3e5, -1e5, P)
+        joint = ss - 0.5 * target * ints[0] * (cov[iu] * cov[ju]) ** 0.2
+        idev = torch.from_numpy(ints).to(device)
+        sdev = torch.from_numpy(np.stack([joint, ss])).to(device)
+        cdev = torch.from_numpy(cov).to(device)
+        if source == "triangle":
+            first, kw, extra = r0, {}, 0
+        else:
+            pdev = tuple(torch.from_numpy(x.astype(np.int32)).to(device) for x in pairs)
+            first, kw, extra = None, dict(pairs=pdev), 8
+            keep_i = torch.empty((P, 6), dtype=torch.int32, device=device)
+            keep_f = torch.empty((P, 2), dtype=torch.float64, device=device)
+            count = torch.empty(1, dtype=torch.int32, device=device)
+        for name, thresh in (("s05", 0.5), ("all", float("inf"))):
+            hi = pair_kernel.select_threshold(thresh)
+            ki, kf, cnt = pair_kernel.score_select(idev, sdev, cdev, first, N, 0.2, hi, **kw)
+            pi, pf, pc = pair_kernel.score_select_plain(idev, sdev, cdev, first, N, 0.2, hi,
+                                                        **kw)
+            k = int(cnt[0])
+            rec_i, rec_f = ki[:k].cpu().numpy(), kf[:k].cpu().numpy()
+            order = np.argsort(rec_i[:, 0])
+            p = rec_i[order, 0]
+            what = f"score_select ({source}) -s {thresh}"
+            check(k == int(pc[0]) and np.array_equal(p, pi[:, 0].cpu().numpy()),
+                  f"{what}: {k} kept, the plain version {int(pc[0])}")
+            check(np.array_equal(rec_i[order, 1:].T, ints[:, p])
+                  and np.array_equal(rec_f[order].T, np.stack([joint, ss])[:, p]),
+                  f"{what}: a record is not the block's values")
+            check(k == P if thresh == float("inf") else 20 <= k < 200,
+                  f"{what}: {k} of {P} pairs kept")
+            if source == "triangle":
+                ms = device_ms(lambda: pair_kernel.score_select(idev, sdev, cdev, r0, N, 0.2, hi))
+            else:  # the kernel's entry alone: the wrapper waits to check the lists' range
+                ms = device_ms(lambda: csrc.check(lib, lib.ntsm_score_select_pairs(
+                    ptr(idev), ptr(sdev), P, ptr(cdev), N, ptr(pdev[0]), ptr(pdev[1]), 0.2, hi,
+                    ptr(keep_i), ptr(keep_f), ptr(count), csrc.stream_ptr(device)),
+                    "score_select"))
+            plain_ms = event_ms(lambda: pair_kernel.score_select_plain(
+                idev, sdev, cdev, first, N, 0.2, hi, **kw))
+            # bytes: each pair's ints and sums (and from a list its i and j)
+            # read once, each kept record (24 + 16 B) written once, cov read
+            # once; a pair's pow, two divisions and square root are far from
+            # the f64 peak (~60 operations a pair)
+            n_bytes = P * (36 + extra) + k * 40 + N * 8
+            bd_ = bound(n_bytes, P * 60, F64_OPS_PER_S)
+            print(f"phase 22: score_select alone ({source}), -s {thresh}, "
+                  + (f"the first row block of N={N}" if source == "triangle"
+                     else f"a -p slice of N={N}")
+                  + f" ({P} pairs): {k} kept, equal to the plain version; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {bd_['bound_ms']:.4f} ms ({bd_['bound_by']}, "
+                  f"{n_bytes / 1e6:.1f} MB) [{card}]", flush=True)
+            out[source, name] = dict(kept=k, pairs=P, ms=ms, plain_ms=plain_ms, **bd_)
+        del idev, sdev, cdev, kw
+    tri, lst = out["triangle", "s05"], out["list", "s05"]
+    return dict(max_abs_err=0.0, pairs=tri["pairs"], ms=tri["ms"], plain_ms=tri["plain_ms"],
+                library_ms=None, bound_ms=tri["bound_ms"], bound_by=tri["bound_by"],
+                kept=tri["kept"], all_ms=out["triangle", "all"]["ms"],
+                all_bound_ms=out["triangle", "all"]["bound_ms"], list_pairs=lst["pairs"],
+                list_kept=lst["kept"], list_ms=lst["ms"], list_bound_ms=lst["bound_ms"],
+                list_all_ms=out["list", "all"]["ms"],
+                list_all_bound_ms=out["list", "all"]["bound_ms"])
 
 
 def check_pca_radius(device, card: str) -> dict:

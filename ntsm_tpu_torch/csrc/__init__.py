@@ -145,6 +145,9 @@ def load():
         lib.ntsm_score_select.restype = I
         lib.ntsm_score_select.argtypes = [P, P, L, P, L, L, ctypes.c_double, ctypes.c_double,
                                           P, P, P, P]
+        lib.ntsm_score_select_pairs.restype = I
+        lib.ntsm_score_select_pairs.argtypes = [P, P, L, P, L, P, P, ctypes.c_double,
+                                                ctypes.c_double, P, P, P, P]
         lib.ntsm_pca_radius.restype = I
         lib.ntsm_pca_radius.argtypes = [P, P, L, I, L, L, I, P, P, P, P, P, P]
         lib.ntsm_project_quantize.restype = I

@@ -1,6 +1,8 @@
-// The score threshold of the default eval all-vs-all, on the card: for each
-// pair of a row block that csrc/pair_stats.cu has just scored (its
-// ints [5, P] int32 and sums [2, P] f64 on the device), the score
+// The score threshold of eval without -a, on the card: for each pair that
+// csrc/pair_stats.cu (a row block of the default all-vs-all) or
+// csrc/pair_block_stats.cu (a slice of the -p candidate list) has just
+// scored (its ints [5, P] int32 and sums [2, P] f64 on the device), the
+// score
 //
 //   score = n > 0 ? -2(joint - ss) / (cov_i cov_j)^skew / n : DBL_MAX
 //
@@ -14,20 +16,27 @@
 // without -a; the host scores those again in f64 and its exact test drops
 // the rest (eval/pair_kernel.py:score_select).
 //
+// A pair's (i, j) comes from one of two sources, one instance of the kernel
+// each: the i<j triangle from row r0, pair p its p-th in row order (the
+// default mode's row block), or the candidate lists ii[p], jj[p] (int32, the
+// ones K5 took for the -p slice).
+//
 // A kept pair goes to compacted records: keep_i [cap, 6] int32 (its index p
-// in the block, then n, ibs0, shared_hets, hets1, hets2) and keep_f [cap, 2]
-// f64 (joint, ss), at slots taken with one atomic add a warp on `count`; the
-// order of the slots is not the order of p.
+// in the block or slice, then n, ibs0, shared_hets, hets1, hets2) and
+// keep_f [cap, 2] f64 (joint, ss), at slots taken with one atomic add a
+// warp on `count`; the order of the slots is not the order of p.
 //
 // It replaces no TPU kernel: the JAX engine applies -s on the host, before
 // it builds any row column (ntsm_tpu/eval/tpu.py).  What bounds it on the
-// H100 is bytes: 36 B a pair read (20 of ints, 16 of sums), 75 MB for a
-// block of 2M pairs, about 0.022 ms at 3.35 TB/s, plus 40 B written a kept
-// pair; cov (25 KB at N = 3,202) stays in L1 and L2, and the f64 work (a
-// pow, two divisions and a square root a pair) is far from the f64 peak.  So a thread takes one pair a pass, the loads of
-// neighbouring threads are neighbouring words of each plane, and one
-// resident wave walks the block in a grid-stride loop that stays uniform
-// within a warp, so that the ballot of each pass sees all 32 lanes.
+// H100 is bytes: 36 B a pair read (20 of ints, 16 of sums; 8 more of ii and
+// jj from a list), 75 MB for a block of 2M pairs, about 0.022 ms at 3.35
+// TB/s, plus 40 B written a kept pair; cov (25 KB at N = 3,202, 256 KB at
+// 32,768) stays in L1 and L2, and the f64 work (a pow, two divisions and a
+// square root a pair) is far from the f64 peak.  So a thread takes one pair
+// a pass, the loads of neighbouring threads are neighbouring words of each
+// plane, and one resident wave walks the block in a grid-stride loop that
+// stays uniform within a warp, so that the ballot of each pass sees all 32
+// lanes.
 
 #include <cfloat>
 #include <cmath>
@@ -60,12 +69,15 @@ __device__ __forceinline__ long long row_of(long long g, long long n_samples) {
     return i;
 }
 
+// kList: i and j from ii[p], jj[p]; else from the triangle from row r0
+template <bool kList>
 __global__ void __launch_bounds__(kThreads)
     score_select_kernel(const int* __restrict__ ints, const double* __restrict__ sums, long P,
-                        const double* __restrict__ cov, long n_samples, long r0, double skew,
+                        const double* __restrict__ cov, long n_samples, long r0,
+                        const int* __restrict__ ii, const int* __restrict__ jj, double skew,
                         double thr_hi, int* __restrict__ keep_i, double* __restrict__ keep_f,
                         unsigned int* __restrict__ count) {
-    const long long g0 = rows_before(r0, n_samples);
+    const long long g0 = kList ? 0 : rows_before(r0, n_samples);
     const long stride = static_cast<long>(gridDim.x) * blockDim.x;
     const int lane = threadIdx.x & 31;
     // base is the same for every thread of a block, so every lane of a warp
@@ -80,9 +92,15 @@ __global__ void __launch_bounds__(kThreads)
             for (int k = 0; k < 5; ++k) v[k] = __ldg(ints + k * P + p);
             joint = __ldg(sums + p);
             ss = __ldg(sums + P + p);
-            const long long g = g0 + p;
-            const long long i = row_of(g, n_samples);
-            const long long j = i + 1 + (g - rows_before(i, n_samples));
+            long long i, j;
+            if constexpr (kList) {
+                i = __ldg(ii + p);
+                j = __ldg(jj + p);
+            } else {
+                const long long g = g0 + p;
+                i = row_of(g, n_samples);
+                j = i + 1 + (g - rows_before(i, n_samples));
+            }
             const int n = v[0];
             double score = DBL_MAX;
             if (n > 0) {
@@ -108,6 +126,32 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// Zeroes count and launches one resident wave of the kList instance on
+// `stream`; returns cudaGetLastError().
+template <bool kList>
+int launch(const void* ints, const void* sums, long P, const void* cov, long n_samples, long r0,
+           const void* ii, const void* jj, double skew, double thr_hi, void* keep_i,
+           void* keep_f, void* count, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (cudaMemsetAsync(count, 0, sizeof(unsigned int), st) != cudaSuccess)
+        return static_cast<int>(cudaGetLastError());
+    if (P <= 0) return static_cast<int>(cudaGetLastError());
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score_select_kernel<kList>,
+                                                      kThreads, 0) != cudaSuccess ||
+        per_sm < 1)
+        per_sm = 1;
+    long blocks = (P + kThreads - 1) / kThreads;
+    const long cap = static_cast<long>(ntsm_sm_count()) * per_sm;
+    if (blocks > cap) blocks = cap;
+    score_select_kernel<kList><<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
+        static_cast<const int*>(ints), static_cast<const double*>(sums), P,
+        static_cast<const double*>(cov), n_samples, r0, static_cast<const int*>(ii),
+        static_cast<const int*>(jj), skew, thr_hi, static_cast<int*>(keep_i),
+        static_cast<double*>(keep_f), static_cast<unsigned int*>(count));
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // ints [5, P] int32 and sums [2, P] f64 of the row block starting at row r0
@@ -118,21 +162,16 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int ntsm_score_select(const void* ints, const void* sums, long P, const void* cov,
                                  long n_samples, long r0, double skew, double thr_hi,
                                  void* keep_i, void* keep_f, void* count, void* stream) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (cudaMemsetAsync(count, 0, sizeof(unsigned int), st) != cudaSuccess)
-        return static_cast<int>(cudaGetLastError());
-    if (P <= 0) return static_cast<int>(cudaGetLastError());
-    int per_sm = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score_select_kernel, kThreads,
-                                                      0) != cudaSuccess ||
-        per_sm < 1)
-        per_sm = 1;
-    long blocks = (P + kThreads - 1) / kThreads;
-    const long cap = static_cast<long>(ntsm_sm_count()) * per_sm;
-    if (blocks > cap) blocks = cap;
-    score_select_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
-        static_cast<const int*>(ints), static_cast<const double*>(sums), P,
-        static_cast<const double*>(cov), n_samples, r0, skew, thr_hi, static_cast<int*>(keep_i),
-        static_cast<double*>(keep_f), static_cast<unsigned int*>(count));
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(ints, sums, P, cov, n_samples, r0, nullptr, nullptr, skew, thr_hi,
+                         keep_i, keep_f, count, stream);
+}
+
+// As ntsm_score_select, for the P candidate pairs (ii[p], jj[p]) of a -p
+// slice: ii, jj [P] int32 on the device, each in [0, n_samples).
+extern "C" int ntsm_score_select_pairs(const void* ints, const void* sums, long P,
+                                       const void* cov, long n_samples, const void* ii,
+                                       const void* jj, double skew, double thr_hi, void* keep_i,
+                                       void* keep_f, void* count, void* stream) {
+    return launch<true>(ints, sums, P, cov, n_samples, 0, ii, jj, skew, thr_hi, keep_i, keep_f,
+                        count, stream);
 }

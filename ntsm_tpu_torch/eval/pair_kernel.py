@@ -31,9 +31,10 @@ the host (:func:`plan_pair_blocks`) and launches the instances of
 ``launches_block`` counts the tile instance's launches,
 ``launches_block_sparse`` the sparse instance's.
 
-:func:`score_select` keeps, of a block's :func:`pair_stats` results, the
-pairs whose score can fall under ``-s``, as compacted records on the
-results' device (the default all-vs-all without ``-a``, eval/rect.py): for
+:func:`score_select` keeps, of a block's :func:`pair_stats` results or a
+slice's :func:`pair_block_stats` results, the pairs whose score can fall
+under ``-s``, as compacted records on the results' device (eval without
+``-a``, eval/rect.py: the default all-vs-all and ``-p``): for
 CPU tensors it runs :func:`score_select_plain`, for CUDA tensors it
 launches ``csrc/score_select.cu`` or raises.  ``launches_select`` counts
 its launches.
@@ -255,19 +256,29 @@ def select_threshold(thresh: float) -> float:
     return thresh + SELECT_MARGIN * max(1.0, abs(thresh))
 
 
-def score_select_plain(ints, sums, cov, r0: int, n_samples: int, skew: float, thr_hi: float):
-    """The plain PyTorch version of :func:`score_select`, in f64: the
-    score of each pair p of the block (row i, column j of the triangle),
-    n > 0 ? -2(joint - ss) / (cov_i cov_j)^skew / n : DBL_MAX, and the
-    pairs with !(score >= thr_hi), in ascending p: (keep_i [k, 6] int32,
-    keep_f [k, 2] f64, count [1] int32 = k)."""
-    dev = ints.device
-    P = ints.shape[1]
+def _select_pairs(dev, P: int, r0, n_samples: int, pairs):
+    """(i, j) int64 of each pair p of :func:`score_select`'s block: the
+    candidate lists `pairs`, else the i<j triangle's pairs from row r0 in
+    row order."""
+    if pairs is not None:
+        return pairs[0].long(), pairs[1].long()
     rows = torch.arange(r0, n_samples - 1, device=dev, dtype=torch.int64)
     starts = rows * (2 * n_samples - rows - 1) // 2  # pairs of the rows before each row
     g = starts[0] + torch.arange(P, device=dev, dtype=torch.int64)
     i = rows[torch.searchsorted(starts, g, right=True) - 1]
-    j = i + 1 + (g - i * (2 * n_samples - i - 1) // 2)
+    return i, i + 1 + (g - i * (2 * n_samples - i - 1) // 2)
+
+
+def score_select_plain(ints, sums, cov, r0, n_samples: int, skew: float, thr_hi: float,
+                       pairs=None):
+    """The plain PyTorch version of :func:`score_select`, in f64: the
+    score of each pair p of the block (i, j from the same source as the
+    kernel's: `pairs`, else the triangle from row r0),
+    n > 0 ? -2(joint - ss) / (cov_i cov_j)^skew / n : DBL_MAX, and the
+    pairs with !(score >= thr_hi), in ascending p: (keep_i [k, 6] int32,
+    keep_f [k, 2] f64, count [1] int32 = k)."""
+    dev = ints.device
+    i, j = _select_pairs(dev, ints.shape[1], r0, n_samples, pairs)
     n = ints[0]
     loglik = -2.0 * (sums[0] - sums[1])
     sc = loglik / (cov[i] * cov[j]).pow(skew) / n.double()
@@ -278,10 +289,31 @@ def score_select_plain(ints, sums, cov, r0: int, n_samples: int, skew: float, th
     return keep_i, keep_f, torch.tensor([kept.numel()], dtype=torch.int32, device=dev)
 
 
-def score_select(ints, sums, cov, r0: int, n_samples: int, skew: float, thr_hi: float):
+def _check_select_pairs(ints, pairs, n_samples: int) -> None:
+    """pairs = (ii, jj): [P] int32, contiguous, on ints' device, every
+    value in [0, n_samples) (one wait for the device on a card)."""
+    ii, jj = pairs
+    P = ints.shape[1]
+    if ii.dim() != 1 or ii.shape != (P,) or jj.shape != (P,):
+        raise ValueError(f"ii, jj must be [{P}], got {tuple(ii.shape)}, {tuple(jj.shape)}")
+    if ii.dtype != torch.int32 or jj.dtype != torch.int32:
+        raise TypeError(f"ii, jj must be int32, got {ii.dtype}, {jj.dtype}")
+    if not (ii.is_contiguous() and jj.is_contiguous()):
+        raise ValueError("ii, jj must be contiguous")
+    if not ii.device == jj.device == ints.device:
+        raise ValueError("ii, jj must be on the statistics' device")
+    if P:
+        lo_i, lo_j, hi_i, hi_j = torch.stack([ii.min(), jj.min(), ii.max(), jj.max()]).tolist()
+        if min(lo_i, lo_j) < 0 or max(hi_i, hi_j) >= n_samples:
+            raise ValueError(f"a pair index outside [0, {n_samples})")
+
+
+def score_select(ints, sums, cov, r0, n_samples: int, skew: float, thr_hi: float, pairs=None):
     """(keep_i [cap, 6] int32, keep_f [cap, 2] f64, count [1] int32) on the
     results' device: of the (ints [5, P], sums [2, P]) that
     :func:`pair_stats` gave for the rows from r0 of an n_samples cohort,
+    or, with ``pairs=(ii, jj)`` in place of r0 (None), that
+    :func:`pair_block_stats` gave for the candidate pairs (ii[p], jj[p]),
     the records (p, n, ibs0, shared_hets, hets1, hets2) and (joint, ss) of
     the first count[0] pairs kept; cov: the [n_samples] f64 coverages.  A
     pair is kept unless its score is at least thr_hi
@@ -301,23 +333,33 @@ def score_select(ints, sums, cov, r0: int, n_samples: int, skew: float, thr_hi: 
     if not (ints.device == sums.device == cov.device):
         raise ValueError("ints, sums, cov must be on one device")
     P = ints.shape[1]
-    if (cov.shape != (n_samples,) or not 0 <= r0 < n_samples - 1
-            or P > (n_samples - 1 - r0) * (n_samples - r0) // 2 or P >= 2**31):
-        raise ValueError(f"cov {tuple(cov.shape)}, row {r0} or {P} pairs do not fit an "
+    if (r0 is None) == (pairs is None):
+        raise ValueError("score_select takes either a first row r0 or pairs=(ii, jj)")
+    if cov.shape != (n_samples,) or P >= 2**31:
+        raise ValueError(f"cov {tuple(cov.shape)} or {P} pairs do not fit an "
                          f"{n_samples}-sample cohort")
+    if pairs is not None:
+        _check_select_pairs(ints, pairs, n_samples)
+    elif not 0 <= r0 < n_samples - 1 or P > (n_samples - 1 - r0) * (n_samples - r0) // 2:
+        raise ValueError(f"row {r0} or {P} pairs do not fit an {n_samples}-sample cohort")
     if ints.device.type == "cpu":
-        return score_select_plain(ints, sums, cov, r0, n_samples, skew, thr_hi)
+        return score_select_plain(ints, sums, cov, r0, n_samples, skew, thr_hi, pairs)
     if ints.device.type != "cuda":
         raise ValueError(f"score_select: unsupported device {ints.device}")
     lib = csrc.load()
     keep_i = torch.empty((P, 6), dtype=torch.int32, device=ints.device)
     keep_f = torch.empty((P, 2), dtype=torch.float64, device=ints.device)
     count = torch.empty(1, dtype=torch.int32, device=ints.device)
-    rc = lib.ntsm_score_select(
-        ctypes.c_void_p(ints.data_ptr()), ctypes.c_void_p(sums.data_ptr()), P,
-        ctypes.c_void_p(cov.data_ptr()), n_samples, r0, float(skew), float(thr_hi),
-        ctypes.c_void_p(keep_i.data_ptr()), ctypes.c_void_p(keep_f.data_ptr()),
-        ctypes.c_void_p(count.data_ptr()), csrc.stream_ptr(ints.device))
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    stream = csrc.stream_ptr(ints.device)
+    if pairs is None:
+        rc = lib.ntsm_score_select(ptr(ints), ptr(sums), P, ptr(cov), n_samples, r0, float(skew),
+                                   float(thr_hi), ptr(keep_i), ptr(keep_f), ptr(count), stream)
+    else:
+        rc = lib.ntsm_score_select_pairs(ptr(ints), ptr(sums), P, ptr(cov), n_samples,
+                                         ptr(pairs[0]), ptr(pairs[1]), float(skew),
+                                         float(thr_hi), ptr(keep_i), ptr(keep_f), ptr(count),
+                                         stream)
     csrc.check(lib, rc, "score_select")
     launches_select += 1
     return keep_i, keep_f, count

@@ -14,8 +14,8 @@ slices with the candidate-pair kernel (both in eval/pair_kernel.py).  Each
 block's per-pair (ints, joint, ss) is fetched, finalized on the host in f64
 with the exact engine's transform and emitted.  Without -a, where only the
 pairs under -s print, the selection kernel (pair_kernel.score_select)
-drops on the device every pair whose score provably does not, so only the
-rest are fetched and finalized.  The TPU engine's wire
+drops on the device every pair (of a row block, or of a -p slice) whose
+score provably does not, so only the rest are fetched and finalized.  The TPU engine's wire
 (u8/u16 planes, the 17 B/pair blob, fetch stacking and grouping, diagonal
 gathers) and its load-overlapped streaming (eval/pca_stream.py) are not
 ported: the card has f64 and a wide host link, so the plain form comes
@@ -205,7 +205,8 @@ def pair_indices(n_samples: int, r0: int, r1: int, p: np.ndarray):
 
 def fetch_selected(keep_i, keep_f, count) -> tuple:
     """The records of pair_kernel.score_select on the host, in ascending
-    p: (p [k] int64, ints [5, k] int32, sums [2, k] f64).  The count comes
+    p (the order of the block or slice): (p [k] int64, ints [5, k] int32,
+    sums [2, k] f64).  The count comes
     first (it waits for the kernels), then only its k records."""
     k = int(count.cpu()[0])
     rec_i, rec_f = keep_i[:k].cpu().numpy(), keep_f[:k].cpu().numpy()
@@ -332,11 +333,20 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
     slices of at most BLOCK_PAIRS, each planned on the host from the host
     list (pair_kernel.plan_pair_blocks).  Returns the seconds spent in each
     stage (PCA_STAGES: candidates, upload, samples, tiles = the plans,
-    score = launch and fetch, finalize, emit) and the number of candidate
-    pairs; inside run_eval's recorder, the projection's stages too.
+    score = launch and fetch, finalize, emit), the number of candidate
+    pairs and `kept`, the candidates finalized on the host; inside
+    run_eval's recorder, the projection's stages too.
     `planes`: device_planes(data, device), where the caller has uploaded
     them already (run_eval, which projects from them); else they are
-    uploaded here."""
+    uploaded here.
+
+    Without -a, each slice's statistics go through pair_kernel.score_select
+    on the slice's candidate lists where they are: only the candidates it
+    keeps (a superset of those under -s) are fetched, in the list's order,
+    and finalized, their distances computed and emitted, and the emit's
+    exact test drops the rest, so the table is the one a full fetch
+    prints, byte for byte.  With -a every candidate prints, and every
+    candidate is fetched."""
     rec = spans.recorder("eval", PCA_STAGES)
     with rec.stage("candidates"):
         with rec.stage("candidates.radii"):
@@ -349,10 +359,15 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
             ii_d, jj_d, ii_all, jj_all = search_kernel.candidate_search(cloud_d, radii_d,
                                                                         stage=rec.stage)
     P = int(ii_all.shape[0])
+    kept = 0
     if not P:
-        return rec.times(pairs=P)
+        return rec.times(pairs=P, kept=kept)
+    select = not opts.all
     with rec.stage("upload"):
         a, b, s = device_planes(data, device, rec=rec) if planes is None else planes
+        if select:
+            cov = torch.from_numpy(np.ascontiguousarray(data.cov, dtype=np.float64)).to(a.device)
+            thr_hi = pair_kernel.select_threshold(opts.score_thresh)
         if a.is_cuda:
             torch.cuda.synchronize(a.device)
     with rec.stage("samples"):
@@ -367,11 +382,21 @@ def compute_score_pca_cuda(data: CountData, opts: Options, out, cloud: np.ndarra
             with rec.stage("launch"):
                 ints_d, sums_d = pair_kernel.pair_block_stats(
                     a, b, s, ii_d[p0:p1], jj_d[p0:p1], opts.min_cov, data.n_sites, plan=plan)
+                if select:
+                    picked = pair_kernel.score_select(ints_d, sums_d, cov, None, data.n_samples,
+                                                      opts.cov_skew, thr_hi,
+                                                      pairs=(ii_d[p0:p1], jj_d[p0:p1]))
             with rec.stage("fetch"):
-                ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
+                if select:
+                    p, ints, sums = fetch_selected(*picked)
+                else:
+                    ints, sums = ints_d.cpu().numpy(), sums_d.cpu().numpy()
         with rec.stage("finalize"):
+            if select:
+                iu, ju = iu[p], ju[p]
             f3, i9 = finalize(data, opts, iu, ju, ints, sums)
             dist = pair_dist_sq(cloud, iu, ju, opts.dim)
         with rec.stage("emit"):
             _emit_prepared(data, opts, out, iu, ju, f3, i9, lib, samp_w, dist=dist)
-    return rec.times(pairs=P)
+        kept += iu.size
+    return rec.times(pairs=P, kept=kept)

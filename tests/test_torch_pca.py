@@ -37,7 +37,7 @@ from ntsm_tpu.options import Options as JOptions
 from ntsm_tpu_torch.eval import driver, pair_kernel, pca, project_kernel, rect
 from ntsm_tpu_torch.eval.model import CountData
 from ntsm_tpu_torch.options import Options
-from tests.test_torch_cuda import native_quantize, quantize_edge_rows
+from tests.test_torch_cuda import full_fetch_pca_table, native_quantize, quantize_edge_rows
 
 torch.set_num_threads(1)
 
@@ -379,6 +379,44 @@ def test_pca_engine_slices_give_the_same_output(tmp_path, monkeypatch):
     want = io.StringIO()
     jdriver.compute_score_pca(jd, JOptions(**kw), want, cloud)
     compare_rows(outs[0], want.getvalue(), "slices")
+
+
+@pytest.mark.parametrize("block_pairs", [1 << 21, 37])
+@pytest.mark.parametrize("thresh", [0.5, 3.0, float("inf"), -1e300])
+@pytest.mark.parametrize("all_", [False, True])
+def test_pca_selection_prints_the_full_fetch_table(tmp_path, monkeypatch, all_, thresh,
+                                                    block_pairs):
+    """-p on the device engine (--engine cuda --device cpu), with and
+    without -a, in one slice and in slices of 37 candidates (a slice's kept
+    p relative to the slice): the bytes a full fetch of every slice prints
+    and those of --engine exact; without -a, `kept` is the slices' kept
+    counts and nothing past them is finalized; with -a every candidate is
+    fetched, and the selection never launches."""
+    monkeypatch.setattr(rect, "BLOCK_PAIRS", block_pairs)
+    _, pd, kw = pca_setup(tmp_path, 1, 40, 600, 3, 1, all=all_, score_thresh=thresh)
+    opts = Options(**kw)
+    cloud = pca.project_pcs(pd, opts, fast=True)
+    got = io.StringIO()
+    before = pair_kernel.launches_select
+    times = rect.compute_score_pca_cuda(pd, opts, got, cloud, "cpu")
+    assert pair_kernel.launches_select == before  # the CPU runs the plain version
+    want, kept = full_fetch_pca_table(pd, opts, cloud, "cpu")
+    assert got.getvalue() == want
+    exact = io.StringIO()
+    driver.run_eval(pd, Options(**kw, engine="exact"), exact, device="cpu")
+    assert exact.getvalue() == want
+    P, rows = times["pairs"], want.count("\n") - 1
+    assert P > 37
+    if all_:
+        assert times["kept"] == rows == P
+        return
+    assert times["kept"] == kept and rows <= kept
+    if thresh == 0.5:
+        assert 0 < rows and kept < P // 4  # the selection engages
+    if thresh == float("inf"):
+        assert kept == rows == P
+    if thresh == -1e300:
+        assert kept == rows == 0
 
 
 def test_run_eval_pca_dispatch(tmp_path, capsys):

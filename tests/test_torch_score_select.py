@@ -1,6 +1,6 @@
-"""The score selection of the default eval all-vs-all
-(eval/pair_kernel.py:score_select_plain, the plain version of
-csrc/score_select.cu, and its use in eval/rect.py:compute_score_all_cuda).
+"""The score selection of eval without -a (eval/pair_kernel.py:
+score_select_plain, the plain version of csrc/score_select.cu, and its use
+in eval/rect.py:compute_score_all_cuda and compute_score_pca_cuda).
 
 * The kept set holds every pair whose host score (eval/rect.py:finalize's
   f64 expression) is under -s, at the edges: n == 0 (DBL_MAX), cov 0
@@ -10,9 +10,15 @@ csrc/score_select.cu, and its use in eval/rect.py:compute_score_all_cuda).
 * The default table of compute_score_all_cuda is byte-identical to the one
   a full fetch of every block prints, over seeds, thresholds (one keeping
   every pair, one none) and row-block sizes; -a fetches every pair.
+* The candidate-list source (-p): the same records as the triangle source
+  on the same pairs, in the same p order; the kept set holds every pair
+  whose host finalize score is under -s, -s 0.5, 0, negative, inf and NaN,
+  with pairs at n == 0 and one a hair under -s; the wrapper refuses lists
+  of the wrong length, type or range.
 """
 
 import io
+import types
 
 import numpy as np
 import pytest
@@ -256,3 +262,120 @@ def test_all_fetches_every_pair(thresh):
     rect.compute_score_all_cuda(data, dopts, default, "cpu")
     same = [r for r in out.getvalue().splitlines()[1:] if r.split("\t")[3] == "1"]
     assert default.getvalue().splitlines()[1:] == same
+
+
+def select_pairs(ints, sums, cov, ii, jj, N: int, skew: float, thresh: float):
+    """score_select's records for the candidate lists (ii, jj), as numpy,
+    and the kept p as a set."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    ki, kf, cnt = pair_kernel.score_select(
+        t(ints), t(sums), t(cov), None, N, skew, pair_kernel.select_threshold(thresh),
+        pairs=(t(ii.astype(np.int32)), t(jj.astype(np.int32))))
+    k = int(cnt[0])
+    ki, kf = ki[:k].numpy(), kf[:k].numpy()
+    return ki, kf, set(ki[:, 0].tolist())
+
+
+@pytest.mark.parametrize("thresh", [0.5, 2.0, float("inf"), float("nan"), -1e300])
+@pytest.mark.parametrize("N,r0,r1", [(41, 0, 40), (41, 7, 9), (130, 60, 129)])
+def test_list_source_is_the_triangle_source(N, r0, r1, thresh):
+    """The list source on a block's own (iu, ju) gives the triangle
+    source's records, count and p order, bit for bit."""
+    rng = np.random.default_rng(N * 1000 + r0)
+    ints, sums, cov, iu, ju = block(rng, N, r0, r1)
+    ints[0, ::9] = 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    hi = pair_kernel.select_threshold(thresh)
+    tri = pair_kernel.score_select_plain(t(ints), t(sums), t(cov), r0, N, 0.2, hi)
+    lst = pair_kernel.score_select_plain(t(ints), t(sums), t(cov), None, N, 0.2, hi,
+                                         pairs=(t(iu.astype(np.int32)), t(ju.astype(np.int32))))
+    for x, y in zip(tri, lst):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    ki, kf, kept = select_pairs(ints, sums, cov, iu, ju, N, 0.2, thresh)
+    np.testing.assert_array_equal(ki, tri[0].numpy())
+    np.testing.assert_array_equal(kf, tri[1].numpy())
+
+
+def candidate_block(rng, N: int, P: int):
+    """Random candidate lists of an N-sample cohort in no order (both
+    orders of a pair, repeats) and their statistics, scores around 0."""
+    ii = rng.integers(0, N, P)
+    jj = (ii + rng.integers(1, N, P)) % N
+    ints = rng.integers(1, 5000, size=(5, P)).astype(np.int32)
+    ss = rng.uniform(-5e4, -1e3, P)
+    sums = np.stack([ss + rng.normal(0, 300, P), ss])
+    return ints, sums, rng.uniform(5, 40, N), ii, jj
+
+
+@pytest.mark.parametrize("skew", [0.2, 0.0])
+@pytest.mark.parametrize("thresh", [0.5, 0.0, -3.25, float("inf"), float("nan")])
+def test_list_keeps_every_candidate_under_the_threshold(thresh, skew):
+    """Of a candidate list, the kept set holds every pair whose host
+    finalize score is under -s (n == 0 pairs at DBL_MAX, one pair a hair
+    under -s, one a hair over), drops those well over it, and each record
+    is the list's values at its index, in ascending p."""
+    rng = np.random.default_rng(int(skew * 10) + 7)
+    N, P = 37, 600
+    ints, sums, cov, ii, jj = candidate_block(rng, N, P)
+    target = rng.normal(0, 2, P)
+    if np.isfinite(thresh):
+        # an ulp either side; at 0 a power of two (-0.5 times a subnormal ulp rounds to 0)
+        hair = 2.0**-1000 if thresh == 0 else 0.0
+        target[:3] = (thresh, np.nextafter(thresh, -np.inf) - hair,
+                      np.nextafter(thresh, np.inf) + hair)
+    ints[0, :3] = 1  # with skew 0 the first three scores are exactly their targets
+    place_scores(ints, sums, cov, ii, jj, skew, target)
+    ints[0, 3::11] = 0  # n == 0: DBL_MAX
+    opts = Options(score_thresh=thresh, cov_skew=skew)
+    f3, _ = rect.finalize(types.SimpleNamespace(cov=cov), opts, ii, jj, ints, sums)
+    score = f3[:, 0]
+    assert (score == DBL_MAX).sum() == len(range(3, P, 11))
+    ki, kf, kept = select_pairs(ints, sums, cov, ii, jj, N, skew, thresh)
+    prints = set(np.flatnonzero(score < thresh).tolist())
+    assert prints <= kept
+    if thresh == float("inf"):
+        assert kept == set(range(P))  # DBL_MAX prints under an infinite -s
+    elif thresh != thresh:
+        assert kept == set(range(P)) and not prints  # -s NaN: nothing prints, nothing fails
+    else:
+        assert 0 < len(prints) and len(kept) < P
+        far = set(np.flatnonzero(score >= thresh + 1e-9 * max(1.0, abs(thresh))).tolist())
+        assert not far & kept
+        if skew == 0.0:  # at -s, a hair under it, a hair over it (within the margin)
+            assert 0 not in prints and 1 in prints and 2 not in prints
+            assert {0, 1, 2} <= kept
+    p = ki[:, 0]
+    assert np.array_equal(p, np.sort(p)) and len(kept) == p.size
+    np.testing.assert_array_equal(ki[:, 1:].T, ints[:, p])
+    np.testing.assert_array_equal(kf.T, sums[:, p])
+
+
+def test_score_select_rejects_bad_pairs():
+    ints = torch.zeros((5, 10), dtype=torch.int32)
+    sums = torch.zeros((2, 10), dtype=torch.float64)
+    cov = torch.ones(5, dtype=torch.float64)
+    ii = torch.arange(10, dtype=torch.int32) % 5
+    jj = (ii + 1) % 5
+    pair_kernel.score_select(ints, sums, cov, None, 5, 0.2, 0.5, pairs=(ii, jj))
+    bad = [
+        (ValueError, (ii[:9], jj[:9])),  # shorter than the statistics
+        (ValueError, (ii, jj[:9])),
+        (ValueError, (torch.cat([ii, ii[:1]]), torch.cat([jj, jj[:1]]))),  # longer
+        (ValueError, (ii.view(2, 5), jj.view(2, 5))),
+        (ValueError, (ii, torch.where(jj == 3, 5, jj))),  # past the cohort
+        (ValueError, (torch.where(ii == 2, -1, ii), jj)),  # negative
+        (TypeError, (ii.long(), jj)),
+        (ValueError, (ii[::1].repeat(2)[::2], jj)),  # not contiguous
+    ]
+    for err, pairs in bad:
+        with pytest.raises(err):
+            pair_kernel.score_select(ints, sums, cov, None, 5, 0.2, 0.5, pairs=pairs)
+    with pytest.raises(ValueError):  # a first row and pairs
+        pair_kernel.score_select(ints, sums, cov, 0, 5, 0.2, 0.5, pairs=(ii, jj))
+    with pytest.raises(ValueError):  # neither
+        pair_kernel.score_select(ints, sums, cov, None, 5, 0.2, 0.5)
+    empty = torch.zeros(0, dtype=torch.int32)
+    _, _, cnt = pair_kernel.score_select(ints[:, :0].contiguous(), sums[:, :0].contiguous(), cov,
+                                         None, 5, 0.2, 0.5, pairs=(empty, empty))
+    assert int(cnt[0]) == 0

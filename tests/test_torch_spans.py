@@ -249,7 +249,7 @@ def test_run_eval_spans_and_stage_keys(pca, tmp_path):
     want = PCA_SPANS if pca else EVAL_SPANS
     names = {n[len("ntsm.eval."):] for n, _, _, _ in t.spans if n.startswith("ntsm.eval.")}
     assert names == want
-    assert set(times) == want | ({"pairs", "project_blocks"} if pca else {"blocks", "kept"})
+    assert set(times) == want | {"kept"} | ({"pairs", "project_blocks"} if pca else {"blocks"})
     assert set(times) >= (PCA_KEYS if pca else ALL_KEYS)
     # each child span inside its parent; the parents' times hold their children's
     kids = {"score": ("launch", "fetch"), "upload": ("upload.copy",),
